@@ -1,0 +1,280 @@
+"""ACE-Step DiT denoiser (flow-matching diffusion transformer) in PyTorch: port of
+the JAX package's models/dit.py for text2music (the timbre encoder and the
+opt-in whole-model megakernel are not ported yet).
+
+Decoder layer: AdaLN from a 6-row ``scale_shift_table`` plus the timestep
+projection, GQA self-attention with NEOX RoPE (every other layer a bidirectional
+sliding window), cross-attention to the packed condition, SwiGLU MLP.  Dual
+timestep embeddings (t and t - r), patchify via conv1d-as-linear and unpatchify
+via convtranspose1d-as-linear.  Cross-attention K/V are computed once per
+request (:func:`compute_all_cross_kv`) and reused by every diffusion step.
+
+The decoder runs on stacked layers (:func:`stack_params`) with q||k||v and
+gate||up fused into one weight stream each (:func:`fuse_params`), as the JAX
+engine does; every linear may carry a q8_0 weight.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from acestep_tpu_torch.config import DiTConfig
+from acestep_tpu_torch.models.stacking import iter_layers, stack_layer_params
+from acestep_tpu_torch.ops import (
+    apply_rope,
+    attention,
+    linear,
+    make_attention_mask,
+    rms_norm,
+    rope_cos_sin,
+    self_attention_masks,
+    silu,
+    sinusoidal_timestep_embedding,
+)
+from acestep_tpu_torch.ops.qlinear import concat_weights_n
+
+Params = Dict[str, Any]
+
+TIME_EMBED_IN = 256  # sinusoidal embedding width
+
+
+def _silu_as(x: torch.Tensor, dtype) -> torch.Tensor:
+    return silu(x.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, mask):
+    b, l, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    if "qkv_proj" in p:
+        qkv = linear(x, p["qkv_proj"]["kernel"])
+        q = qkv[..., : nh * hd].reshape(b, l, nh, hd)
+        k = qkv[..., nh * hd: (nh + nkv) * hd].reshape(b, l, nkv, hd)
+        v = qkv[..., (nh + nkv) * hd:].reshape(b, l, nkv, hd)
+    else:
+        q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
+        k = linear(x, p["k_proj"]["kernel"]).reshape(b, l, nkv, hd)
+        v = linear(x, p["v_proj"]["kernel"]).reshape(b, l, nkv, hd)
+    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    v = v.transpose(1, 2)
+    q, k = apply_rope(q, k, cos, sin)
+    out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
+    return linear(out, p["o_proj"]["kernel"])
+
+
+def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor):
+    """K/V [B, Hkv, Lc, D] of one layer's cross-attention over the projected
+    condition [B, Lc, H]."""
+    b, lc, _ = enc.shape
+    hd, nkv = cfg.head_dim, cfg.num_key_value_heads
+    k = linear(enc, p["k_proj"]["kernel"]).reshape(b, lc, nkv, hd)
+    k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    v = linear(enc, p["v_proj"]["kernel"]).reshape(b, lc, nkv, hd).transpose(1, 2)
+    return k, v
+
+
+def _cross_attention(p: Params, cfg: DiTConfig, x, kv, mask):
+    b, l, _ = x.shape
+    hd, nh = cfg.head_dim, cfg.num_attention_heads
+    q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
+    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    k, v = kv
+    out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
+    return linear(out, p["o_proj"]["kernel"])
+
+
+def _mlp(p: Params, x):
+    if "gateup_proj" in p:
+        gu = linear(x, p["gateup_proj"]["kernel"])
+        inter = gu.shape[-1] // 2
+        gate, up = gu[..., :inter], gu[..., inter:]
+    else:
+        gate = linear(x, p["gate_proj"]["kernel"])
+        up = linear(x, p["up_proj"]["kernel"])
+    return linear(_silu_as(gate, x.dtype) * up, p["down_proj"]["kernel"])
+
+
+def _timestep_embed(p: Params, t: torch.Tensor, dtype):
+    """t [B] -> (temb [B, H], proj [B, 6, H])."""
+    t_freq = sinusoidal_timestep_embedding(t, TIME_EMBED_IN).to(dtype)
+    temb = linear(t_freq, p["linear_1"]["kernel"], p["linear_1"]["bias"])
+    temb = linear(_silu_as(temb, dtype), p["linear_2"]["kernel"], p["linear_2"]["bias"])
+    proj = linear(_silu_as(temb, dtype), p["time_proj"]["kernel"], p["time_proj"]["bias"])
+    return temb, proj.reshape(proj.shape[0], 6, -1)
+
+
+def compute_timestep_conditioning(params: Params, cfg: DiTConfig, timestep, timestep_r,
+                                  dtype=torch.bfloat16):
+    """Dual timestep embedding: t and (t - r)."""
+    temb_t, proj_t = _timestep_embed(params["time_embed"], timestep, dtype)
+    temb_r, proj_r = _timestep_embed(params["time_embed_r"], timestep - timestep_r, dtype)
+    return temb_t + temb_r, proj_t + proj_r
+
+
+def compute_condition(params: Params, cfg: DiTConfig, encoder_hidden_states):
+    """Project the packed condition once (condition_embedder)."""
+    p = params["condition_embedder"]
+    return linear(encoder_hidden_states, p["kernel"], p["bias"])
+
+
+def compute_all_cross_kv(params: Params, cfg: DiTConfig, enc):
+    """Per-layer cross-attention K/V for a step-constant condition: a list of
+    (k, v) per layer."""
+    return [cross_kv(p["cross_attn"], cfg, enc) for p in iter_layers(params["layers"])]
+
+
+# ---------------------------------------------------------------------------
+# layer stacking / fusion
+# ---------------------------------------------------------------------------
+
+def stack_params(params: Params) -> Params:
+    """Stack the decoder layer list along a leading layer axis (idempotent)."""
+    if isinstance(params.get("layers"), list):
+        params = dict(params)
+        params["layers"] = stack_layer_params(params["layers"])
+    return params
+
+
+def fuse_params(params: Params) -> Params:
+    """Fuse the stacked decoder's self-attn q||k||v and mlp gate||up into one
+    weight each (concat along N: exact column-for-column).  A group whose
+    kernels are not all q8_0 or all plain (a small config may quantize only
+    some) stays unfused.  Idempotent."""
+    layers = params.get("layers")
+    if not isinstance(layers, dict):
+        return params
+    sa, mlp = dict(layers["self_attn"]), dict(layers["mlp"])
+    for group, names, fused in ((sa, ("q_proj", "k_proj", "v_proj"), "qkv_proj"),
+                                (mlp, ("gate_proj", "up_proj"), "gateup_proj")):
+        if names[0] not in group:
+            continue
+        ws = [group[n]["kernel"] for n in names]
+        if len({type(w) for w in ws}) == 1:
+            for n in names:
+                del group[n]
+            group[fused] = {"kernel": concat_weights_n(ws)}
+    out = dict(params)
+    out["layers"] = dict(layers, self_attn=sa, mlp=mlp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decoder forward
+# ---------------------------------------------------------------------------
+
+def forward(
+    params: Params,
+    cfg: DiTConfig,
+    hidden_states: torch.Tensor,             # [B, T, 64] noisy latents
+    timestep: torch.Tensor,                  # [B]
+    timestep_r: torch.Tensor,                # [B]
+    context_latents: torch.Tensor,           # [B, T, ctx_dim]
+    cross_kv_cache: List[Tuple[torch.Tensor, torch.Tensor]],
+    attn_mask: Optional[torch.Tensor] = None,          # [B, T] 1=valid
+    encoder_attn_mask: Optional[torch.Tensor] = None,  # [B, Lc]
+) -> torch.Tensor:
+    """Predict the velocity v_t [B, T, 64]; ``cross_kv_cache`` comes from
+    :func:`compute_all_cross_kv` on :func:`compute_condition`'s output."""
+    b, t_len, _ = hidden_states.shape
+    patch = cfg.patch_size
+    dtype = hidden_states.dtype
+    dev = hidden_states.device
+
+    temb, timestep_proj = compute_timestep_conditioning(
+        params, cfg, timestep, timestep_r, dtype)
+
+    x = torch.cat([context_latents.to(dtype), hidden_states], dim=-1)
+    pad = (-t_len) % patch
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    tp = (t_len + pad) // patch
+    x = x.reshape(b, tp, patch * cfg.in_channels)
+    x = linear(x, params["proj_in"]["kernel"], params["proj_in"]["bias"])
+
+    cos, sin = rope_cos_sin(torch.arange(tp, device=dev), cfg.head_dim, base=cfg.rope_theta)
+    cos, sin = cos.to(dtype), sin.to(dtype)
+
+    # patch-pooled self-attn validity (any valid frame in a patch -> valid patch)
+    patch_valid = None
+    if attn_mask is not None:
+        am = F.pad(attn_mask, (0, pad)) if pad else attn_mask
+        patch_valid = am.reshape(b, tp, patch).amax(dim=-1)
+    sliding_mask, full_mask = self_attention_masks(tp, cfg.sliding_window, patch_valid, dev)
+    cross_mask = (make_attention_mask(tp, encoder_attn_mask.shape[1],
+                                      kv_valid=encoder_attn_mask)
+                  if encoder_attn_mask is not None else None)
+
+    mod_all = timestep_proj.float()
+    for li, p in enumerate(iter_layers(params["layers"])):
+        mod = p["scale_shift_table"].float()[None] + mod_all      # [B, 6, H]
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
+            mod[:, j:j + 1, :].to(dtype) for j in range(6)]
+        sliding = cfg.layer_types[li] == "sliding_attention"
+
+        normed = rms_norm(x, p["self_attn_norm"], cfg.rms_norm_eps)
+        normed = normed * (1.0 + scale_msa) + shift_msa
+        x = x + _self_attention(p["self_attn"], cfg, normed, cos, sin,
+                                sliding_mask if sliding else full_mask) * gate_msa
+
+        normed = rms_norm(x, p["cross_attn_norm"], cfg.rms_norm_eps)
+        x = x + _cross_attention(p["cross_attn"], cfg, normed, cross_kv_cache[li], cross_mask)
+
+        normed = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        normed = normed * (1.0 + c_scale) + c_shift
+        x = x + _mlp(p["mlp"], normed) * c_gate
+
+    return _finalize_output(params, cfg, x, temb, dtype, t_len, patch)
+
+
+def _finalize_output(params, cfg: DiTConfig, x, temb, dtype, t_len: int, patch: int):
+    """Output AdaLN (2-row table) + unpatchify (convtranspose1d stride=patch)."""
+    b, tp, _ = x.shape
+    out_mod = params["out_scale_shift_table"].float()[None] + temb.float()[:, None, :]
+    out_shift = out_mod[:, 0:1, :].to(dtype)
+    out_scale = out_mod[:, 1:2, :].to(dtype)
+    x = rms_norm(x, params["norm_out"], cfg.rms_norm_eps) * (1.0 + out_scale) + out_shift
+    y = linear(x, params["proj_out"]["kernel"])                # [B, Tp, patch*audio]
+    y = y.reshape(b, tp * patch, cfg.audio_acoustic_hidden_dim)
+    y = y + params["proj_out"]["bias"].to(y.dtype)
+    return y[:, :t_len, :]
+
+
+# ---------------------------------------------------------------------------
+# conditioning encoders
+# ---------------------------------------------------------------------------
+
+def _encoder_stack(layers, cfg: DiTConfig, x, valid):
+    l = x.shape[1]
+    dtype = x.dtype
+    cos, sin = rope_cos_sin(torch.arange(l, device=x.device), cfg.head_dim,
+                            base=cfg.rope_theta)
+    cos, sin = cos.to(dtype), sin.to(dtype)
+    sliding_mask, full_mask = self_attention_masks(l, cfg.sliding_window, valid, x.device)
+    for i, p in enumerate(iter_layers(layers)):
+        sliding = i < len(cfg.layer_types) and cfg.layer_types[i] == "sliding_attention"
+        xn = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
+        x = x + _self_attention(p["self_attn"], cfg, xn, cos, sin,
+                                sliding_mask if sliding else full_mask)
+        x = x + _mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
+    return x
+
+
+def lyric_encoder(params: Params, cfg: DiTConfig, lyric_hidden_states,
+                  lyric_mask: Optional[torch.Tensor] = None):
+    """Project + encode lyric token embeddings [B, L, text_hidden] -> [B, L, H]."""
+    p = params["lyric_embed"]
+    x = linear(lyric_hidden_states, p["kernel"], p.get("bias"))
+    x = _encoder_stack(params["lyric_layers"], cfg, x, lyric_mask)
+    return rms_norm(x, params["lyric_norm"], cfg.rms_norm_eps)
+
+
+def text_projector(params: Params, style_hidden):
+    """Style branch: text-encoder hidden states -> DiT hidden size."""
+    return linear(style_hidden, params["text_projector"]["kernel"])

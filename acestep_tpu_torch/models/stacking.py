@@ -1,0 +1,56 @@
+"""Layer stacking helpers shared by the transformer stacks.
+
+A stack's ``layers`` is a list of per-layer dicts, or one dict whose leaves
+carry a leading layer axis (q8_0 kernels as stacked QuantTensors
+``[L, K, N]``).  Stacked layers are walked by index; each quantized kernel is
+handed to ``linear`` as a :class:`StackedWeight`, so the kernel reads layer
+``li`` in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from acestep_tpu_torch.ops.qlinear import StackedWeight
+from acestep_tpu_torch.quant import QuantTensor
+
+
+def _stack(vals):
+    if isinstance(vals[0], dict):
+        return {k: _stack([v[k] for v in vals]) for k in vals[0]}
+    if isinstance(vals[0], QuantTensor):
+        return QuantTensor(vals[0].fmt, vals[0].shape,
+                           torch.stack([v.data for v in vals]),
+                           torch.stack([v.scales for v in vals]))
+    return torch.stack(vals)
+
+
+def stack_layer_params(layers):
+    """List of per-layer dicts -> one dict with a leading layer axis."""
+    return _stack(list(layers))
+
+
+def layer_view(stacked, li: int):
+    """Layer ``li`` of stacked params: small tensors indexed, quantized kernels
+    as :class:`StackedWeight` handles (read in place by the kernel)."""
+    if isinstance(stacked, dict):
+        return {k: layer_view(v, li) for k, v in stacked.items()}
+    if isinstance(stacked, QuantTensor):
+        return StackedWeight(stacked, li)
+    return stacked[li]
+
+
+def num_layers(layers) -> int:
+    if isinstance(layers, list):
+        return len(layers)
+    while isinstance(layers, dict):
+        layers = next(iter(layers.values()))
+    return layers.num_layers if isinstance(layers, QuantTensor) else layers.shape[0]
+
+
+def iter_layers(layers):
+    if isinstance(layers, list):
+        yield from layers
+    else:
+        for li in range(num_layers(layers)):
+            yield layer_view(layers, li)

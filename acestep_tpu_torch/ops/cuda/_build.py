@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+All ``acestep_tpu_torch/csrc/*.cu`` sources are compiled by ONE plain ``nvcc``
+call into a shared library with a C interface, which is loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<hash>/libacestep_kernels.so csrc/*.cu
+
+No source includes PyTorch's headers, so the build takes seconds, not the
+minutes of ``torch.utils.cpp_extension``.  The library lands in ``build/kernels/``
+at the repository root (git-ignored), under a directory named by the hash of
+the sources and flags: it is rebuilt only when a source changes.  The build runs
+at first use, never at import, so the CPU tests can import every module.
+
+Each C entry point takes device pointers, ints and the CUDA stream (all
+pointers and the stream as ``ctypes.c_void_p``) and returns
+``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+LIB_NAME = "libacestep_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: name -> argtypes (all return int)
+SIGNATURES = {
+    # x, w, scales, bias, out, M, N, K, out_bf16, stream
+    "acestep_qmm_q8_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, a1, be1, a2, be2, out, N, L, C, dilation, stream
+    "acestep_vae_res_unit": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # x, w1s, b1s, w2s, b2s, a1s, be1s, a2s, be2s, out, N, L, C, stream
+    "acestep_vae_res_trio": [_P] * 10 + [_I, _I, _I, _P],
+    # shared-memory bytes of one block: (C, dilation) / (C)
+    "acestep_vae_res_unit_smem": [_I, _I],
+    "acestep_vae_res_trio_smem": [_I],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of the last nvcc build (None: cached)
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels "
+                       "are built on the machine with the card")
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_ROOT, _digest(), LIB_NAME)
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels unless a library for the current sources exists;
+    returns its path."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose and (proc.stdout or proc.stderr):
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

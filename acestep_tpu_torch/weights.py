@@ -1,0 +1,50 @@
+"""Parameter trees from the JAX package into the port.
+
+:func:`from_jax_numpy` takes one of the JAX package's parameter trees (nested
+dicts/lists) whose array leaves are numpy arrays (any array with
+``__array__``) and whose q8_0 weights are QuantTensor-like objects (``fmt``,
+``shape``, ``data``, ``scales`` attributes), and returns the same tree with
+torch tensors and :class:`acestep_tpu_torch.quant.QuantTensor` leaves.  The
+layouts are the same in both packages, so the port computes the same function
+on the converted tree.  No JAX import is needed: leaves are read through numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from acestep_tpu_torch.quant import QuantTensor
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":       # numpy has no bf16 of its own
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def from_jax_numpy(tree, device="cpu"):
+    if isinstance(tree, dict):
+        return {k: from_jax_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_numpy(v, device) for v in tree)
+    if tree is None:
+        return None
+    if hasattr(tree, "fmt"):
+        if tree.fmt != "q8_0":
+            raise ValueError(f"the port supports q8_0 weights only, got {tree.fmt}")
+        return QuantTensor("q8_0", tuple(int(s) for s in tree.shape),
+                           _tensor(tree.data, device), _tensor(tree.scales, device))
+    return _tensor(tree, device)
+
+
+def tree_to(tree, device):
+    """Move every tensor of a parameter tree (QuantTensors included) to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    if isinstance(tree, QuantTensor):
+        return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
