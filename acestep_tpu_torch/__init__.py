@@ -2,12 +2,16 @@
 Hopper (H100).
 
 The JAX package ``acestep_tpu`` beside it is the reference; this package
-imports nothing from it and never imports JAX.  The first slice covers q8_0
-text2music: Qwen3 text encoder -> 8-step turbo DiT -> Oobleck VAE decode to
-int16.  Its hot ops are hand-written CUDA C++ kernels for sm_90a
-(``csrc/*.cu``), built with one plain ``nvcc`` call and loaded with ctypes:
+imports nothing from it and never imports JAX.  It covers text2music at
+batch 1 with q8_0, q4_0, q4_k or q6_k weights: Qwen3 text encoder -> 8-step
+turbo DiT -> Oobleck VAE decode to int16, from random weights or a converted
+checkpoint directory (``serving.launch.build_engine``).  Its hot ops are
+hand-written CUDA C++ kernels for sm_90a (``csrc/*.cu``), built with one plain
+``nvcc`` call and loaded with ctypes:
 
-  ops.cuda.qmm          q8_0 dequant-matmul (2-D and layer-stacked weights)
+  ops.cuda.qmm          dequant-matmul per quant format (2-D and layer-stacked
+                        weights): q8_0 (csrc/qmm_q8_0.cu), q4_0 / q4_k / q6_k
+                        (csrc/qmm_q4.cu)
   ops.cuda.vae_resunit  fused Oobleck residual unit and dilation-1/3/9 trio
 
 Every kernel wrapper runs the kernel for CUDA tensors and its plain PyTorch

@@ -13,6 +13,13 @@ import math
 from typing import Tuple
 
 
+def _known_fields(cls, d: dict) -> dict:
+    """The entries of ``d`` that name a field of ``cls`` (a config file may carry
+    more keys)."""
+    keys = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in keys}
+
+
 def _alternating_layer_types(n: int) -> Tuple[str, ...]:
     # odd layers (1-based) sliding, even full
     return tuple(
@@ -55,6 +62,13 @@ class DiTConfig:
     def context_dim(self) -> int:
         return self.in_channels - self.audio_acoustic_hidden_dim
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "DiTConfig":
+        kw = _known_fields(cls, d)
+        if kw.get("layer_types"):
+            kw["layer_types"] = tuple(kw["layer_types"])
+        return cls(**kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class QwenConfig:
@@ -71,6 +85,10 @@ class QwenConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1e6
     tie_word_embeddings: bool = True
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "QwenConfig":
+        return cls(**_known_fields(cls, d))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +110,11 @@ class VAEConfig:
     @property
     def upsampling_ratios(self) -> Tuple[int, ...]:
         return tuple(reversed(self.downsampling_ratios))
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VAEConfig":
+        kw = _known_fields(cls, d)
+        for k in ("downsampling_ratios", "channel_multiples"):
+            if k in kw:
+                kw[k] = tuple(kw[k])
+        return cls(**kw)

@@ -11,7 +11,7 @@ request (:func:`compute_all_cross_kv`) and reused by every diffusion step.
 
 The decoder runs on stacked layers (:func:`stack_params`) with q||k||v and
 gate||up fused into one weight stream each (:func:`fuse_params`), as the JAX
-engine does; every linear may carry a q8_0 weight.
+engine does; every linear may carry a quantized weight.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ def stack_params(params: Params) -> Params:
 def fuse_params(params: Params) -> Params:
     """Fuse the stacked decoder's self-attn q||k||v and mlp gate||up into one
     weight each (concat along N: exact column-for-column).  A group whose
-    kernels are not all q8_0 or all plain (a small config may quantize only
-    some) stays unfused.  Idempotent."""
+    kernels are not all of one quant format or all plain (a small config may
+    quantize only some) stays unfused.  Idempotent."""
     layers = params.get("layers")
     if not isinstance(layers, dict):
         return params
@@ -156,7 +156,7 @@ def fuse_params(params: Params) -> Params:
         if names[0] not in group:
             continue
         ws = [group[n]["kernel"] for n in names]
-        if len({type(w) for w in ws}) == 1:
+        if len({(type(w), getattr(w, "fmt", None)) for w in ws}) == 1:
             for n in names:
                 del group[n]
             group[fused] = {"kernel": concat_weights_n(ws)}

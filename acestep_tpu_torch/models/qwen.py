@@ -3,7 +3,7 @@ models/qwen.py forward.
 
 Per layer: RMSNorm -> GQA attention with per-head q/k RMSNorm + NEOX RoPE ->
 residual -> RMSNorm -> SwiGLU MLP -> residual; final RMSNorm.  Params are a
-plain dict; every ``*_proj`` kernel is ``[K, N]`` and may be a q8_0
+plain dict; every ``*_proj`` kernel is ``[K, N]`` and may be a
 QuantTensor.  ``layers`` is a list of per-layer dicts, or (after
 :func:`stack_params`) one dict whose leaves carry a leading layer axis.
 """

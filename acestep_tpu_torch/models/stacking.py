@@ -1,7 +1,7 @@
 """Layer stacking helpers shared by the transformer stacks.
 
 A stack's ``layers`` is a list of per-layer dicts, or one dict whose leaves
-carry a leading layer axis (q8_0 kernels as stacked QuantTensors
+carry a leading layer axis (quantized kernels as stacked QuantTensors
 ``[L, K, N]``).  Stacked layers are walked by index; each quantized kernel is
 handed to ``linear`` as a :class:`StackedWeight`, so the kernel reads layer
 ``li`` in place.
@@ -12,16 +12,14 @@ from __future__ import annotations
 import torch
 
 from acestep_tpu_torch.ops.qlinear import StackedWeight
-from acestep_tpu_torch.quant import QuantTensor
+from acestep_tpu_torch.quant import QuantTensor, stack_layers
 
 
 def _stack(vals):
     if isinstance(vals[0], dict):
         return {k: _stack([v[k] for v in vals]) for k in vals[0]}
     if isinstance(vals[0], QuantTensor):
-        return QuantTensor(vals[0].fmt, vals[0].shape,
-                           torch.stack([v.data for v in vals]),
-                           torch.stack([v.scales for v in vals]))
+        return stack_layers(vals)
     return torch.stack(vals)
 
 

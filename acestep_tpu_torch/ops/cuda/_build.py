@@ -41,6 +41,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, scales, bias, out, M, N, K, out_bf16, stream
     "acestep_qmm_q8_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, data, scales, bias, out, M, N, K, out_bf16, stream
+    "acestep_qmm_q4_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, data, sub_scales, sub_mins, super_scales, super_mins, bias, out, M, N, K,
+    # out_bf16, stream
+    "acestep_qmm_q4_k": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # x, data, data_hi, sub_scales, super_scales, bias, out, M, N, K, out_bf16, stream
+    "acestep_qmm_q6_k": [_P] * 7 + [_I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2, a1, be1, a2, be2, out, N, L, C, dilation, stream
     "acestep_vae_res_unit": [_P] * 10 + [_I, _I, _I, _I, _P],
     # x, w1s, b1s, w2s, b2s, a1s, be1s, a2s, be2s, out, N, L, C, stream

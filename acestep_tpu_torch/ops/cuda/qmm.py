@@ -1,53 +1,84 @@
-"""q8_0 dequant-matmul: CUDA kernel wrapper, its plain PyTorch version and the
-2-D / n-D / layer-stacked entry points.
+"""Dequant-matmuls for every quant format: CUDA kernel wrappers, their plain
+PyTorch version and the 2-D / n-D / layer-stacked entry points.
 
-Kernel: ``csrc/qmm_q8_0.cu`` (hand-written for sm_90a, WMMA bf16 tensor cores).
-It replaces the Pallas kernel ``acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel``
-reached through ``qmm_pallas`` / ``qmm_pallas_nd`` and, for the DiT's
+Kernels (hand-written for sm_90a, WMMA bf16 tensor cores, f32 accumulation):
+
+  q8_0  csrc/qmm_q8_0.cu  replaces acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel
+  q4_0  csrc/qmm_q4.cu    replaces qmm.py:164 _q4_0_kernel
+  q4_k  csrc/qmm_q4.cu    replaces qmm.py:187 _q4_k_kernel
+  q6_k  csrc/qmm_q4.cu    replaces qmm.py:208 _q6_k_kernel
+
+each reached through ``qmm_pallas`` / ``qmm_pallas_nd`` and, for the DiT's
 layer-stacked weights, ``qmm_pallas_stacked`` (scalar-prefetched layer index):
 here the stacked form passes the base pointers of layer ``li`` to the same
-kernel, so no per-layer weight copy is made either.
-
-Bound on the H100: bytes at the main path's shapes (M = 1..320 rows; an int8
-weight byte feeds 2*M flops, below the card's ~295 flop/byte balance).  The
-kernel streams int8 weights and dequantizes them in shared memory, so device
+kernel, so no per-layer weight copy is made either.  Every kernel streams the
+quantized fields as stored and dequantizes them in shared memory, so device
 memory never holds a bf16 copy of W.
 
 Numerics (the JAX package's, qmm.py:18-19): dequant in f32, one rounding to
 bf16, f32 accumulation; the bias is added in f32 before the one output rounding.
 
-Dispatch: a CPU tensor takes :func:`qmm_plain`; a CUDA tensor launches the
-kernel or raises.  ``launches`` counts kernel launches; ``shapes`` counts them
-by ``(M, K, N)``, so a run can show which shapes its path used.
+Dispatch on ``qt.fmt``: a CPU tensor takes :func:`qmm_plain`; a CUDA tensor
+launches the format's kernel or raises.  Each kernel has its own entry in
+:data:`KERNELS`: ``launches`` counts its launches, ``shapes`` counts them by
+``(M, K, N)``, so a run can show which kernels and shapes its path used.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
 from typing import Optional
 
 import torch
 
 from acestep_tpu_torch.ops.cuda import _build
-from acestep_tpu_torch.quant import BLOCK, QuantTensor, dequantize
+from acestep_tpu_torch.quant import BLOCK, FOLD, SUB16, SUPER, QuantTensor, dequantize
 
-NAME = "q8_0_qmm"
-SOURCE = "acestep_tpu_torch/csrc/qmm_q8_0.cu"
-REPLACES = "acestep_tpu/ops/pallas/qmm.py:147"
 
-launches = 0
-shapes: Counter = Counter()      # (M, K, N) -> launches at that shape
+@dataclasses.dataclass
+class Kernel:
+    """One format's kernel: its C entry point, what it replaces, its counts."""
+
+    name: str
+    entry: str
+    source: str
+    replaces: str
+    # (field, dtype, K rows per stored row) in the entry point's argument order
+    fields: tuple
+    launches: int = 0
+    shapes: Counter = dataclasses.field(default_factory=Counter)
+
+
+_U8, _I8, _F32 = torch.uint8, torch.int8, torch.float32
+_Q4_SRC = "acestep_tpu_torch/csrc/qmm_q4.cu"
+KERNELS = {
+    "q8_0": Kernel("q8_0_qmm", "acestep_qmm_q8_0", "acestep_tpu_torch/csrc/qmm_q8_0.cu",
+                   "acestep_tpu/ops/pallas/qmm.py:147",
+                   (("data", _I8, 1), ("scales", _F32, BLOCK))),
+    "q4_0": Kernel("q4_0_qmm", "acestep_qmm_q4_0", _Q4_SRC,
+                   "acestep_tpu/ops/pallas/qmm.py:164",
+                   (("data", _U8, 2), ("scales", _F32, BLOCK))),
+    "q4_k": Kernel("q4_k_qmm", "acestep_qmm_q4_k", _Q4_SRC,
+                   "acestep_tpu/ops/pallas/qmm.py:187",
+                   (("data", _U8, 2), ("sub_scales", _U8, BLOCK), ("sub_mins", _U8, BLOCK),
+                    ("super_scales", _F32, SUPER), ("super_mins", _F32, SUPER))),
+    "q6_k": Kernel("q6_k_qmm", "acestep_qmm_q6_k", _Q4_SRC,
+                   "acestep_tpu/ops/pallas/qmm.py:208",
+                   (("data", _U8, 2), ("data_hi", _U8, 4), ("sub_scales", _I8, SUB16),
+                    ("super_scales", _F32, SUPER))),
+}
 
 
 def reset_counts() -> None:
-    global launches
-    launches = 0
-    shapes.clear()
+    for kern in KERNELS.values():
+        kern.launches = 0
+        kern.shapes.clear()
 
 
 def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: ``x [M, K] @ dequant(qt) [K, N]``."""
+    """The kernels' function in plain PyTorch: ``x [M, K] @ dequant(qt) [K, N]``."""
     wd = dequantize(qt, torch.bfloat16).float()
     y = x.to(torch.bfloat16).float() @ wd
     if bias is not None:
@@ -57,22 +88,25 @@ def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = N
 
 def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
             out_dtype) -> torch.Tensor:
-    global launches
+    kern = KERNELS[qt.fmt]
     m, k = x.shape
     kk, n = qt.shape
-    if k != kk or k % BLOCK:
-        raise ValueError(f"qmm: x [{m}, {k}] against q8_0 weight {qt.shape}")
-    data, scales = qt.data, qt.scales
-    if data.dim() != 2 or tuple(data.shape) != (k, n) or data.dtype != torch.int8:
-        raise ValueError(f"qmm: weight data must be int8 [{k}, {n}], got "
-                         f"{data.dtype} {tuple(data.shape)}")
-    if scales.dtype != torch.float32 or tuple(scales.shape) != (k // BLOCK, n):
-        raise ValueError("qmm: scales must be f32 [K/32, N] (pre-cast them once; "
-                         f"got {scales.dtype} {tuple(scales.shape)})")
-    if not (data.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("qmm: weight data and scales must be contiguous")
-    if data.device != x.device or scales.device != x.device:
-        raise ValueError("qmm: x and the weight must lie on the same device")
+    align = BLOCK if qt.fmt == "q8_0" else FOLD
+    if k != kk or k % align:
+        raise ValueError(f"qmm: x [{m}, {k}] against {qt.fmt} weight {qt.shape} "
+                         f"(K must be a multiple of {align})")
+    ptrs = []
+    for field, dtype, rows_per in kern.fields:
+        a = getattr(qt, field)
+        if a is None or a.dtype != dtype or tuple(a.shape) != (k // rows_per, n):
+            raise ValueError(
+                f"qmm: {qt.fmt} field {field} must be {dtype} [{k // rows_per}, {n}] "
+                "(f32 scales: pre-cast them once), got "
+                f"{None if a is None else (a.dtype, tuple(a.shape))}")
+        if not a.is_contiguous() or a.device != x.device:
+            raise ValueError(f"qmm: {qt.fmt} field {field} must be contiguous and on "
+                             f"{x.device}")
+        ptrs.append(a.data_ptr())
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"qmm: output dtype {out_dtype} not supported")
     x = x.to(torch.bfloat16).contiguous()
@@ -85,12 +119,12 @@ def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
         if bias.shape != (n,):
             raise ValueError(f"qmm: bias must be [{n}], got {tuple(bias.shape)}")
         bias_ptr = bias.data_ptr()
-    err = _build.lib().acestep_qmm_q8_0(
-        x.data_ptr(), data.data_ptr(), scales.data_ptr(), bias_ptr, out.data_ptr(),
-        m, n, k, int(out_dtype == torch.bfloat16), _build.stream_ptr(x))
-    _build.check("acestep_qmm_q8_0", err)
-    launches += 1
-    shapes[(m, k, n)] += 1
+    err = getattr(_build.lib(), kern.entry)(
+        x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), m, n, k,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(x))
+    _build.check(kern.entry, err)
+    kern.launches += 1
+    kern.shapes[(m, k, n)] += 1
     return out
 
 

@@ -1,11 +1,11 @@
 """Quantized linear: ``y = x @ W (+ b)`` with f32 accumulation; the output dtype
 follows x.
 
-W is a plain tensor ``[K, N]``, a q8_0 :class:`QuantTensor`, or a
-:class:`StackedWeight` (layer ``idx`` of a weight stacked ``[L, K, N]``, read
-in place).  Quantized weights go through the q8_0 dequant-matmul
-(``ops.cuda.qmm``: the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors).
+W is a plain tensor ``[K, N]``, a :class:`QuantTensor` (q8_0, q4_0, q4_k or
+q6_k), or a :class:`StackedWeight` (layer ``idx`` of a weight stacked
+``[L, K, N]``, read in place).  Quantized weights go through the format's
+dequant-matmul (``ops.cuda.qmm``: the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors).
 """
 
 from __future__ import annotations
@@ -16,6 +16,9 @@ import torch
 
 from acestep_tpu_torch.ops.cuda import qmm as _qmm
 from acestep_tpu_torch.quant import QuantTensor, concat_n
+
+
+_F32_FIELDS = ("scales", "super_scales", "super_mins")
 
 
 class StackedWeight:
@@ -55,12 +58,14 @@ def concat_weights_n(ws):
 
 
 def precast_quant_scales(tree):
-    """Cast every QuantTensor's scales to f32 once (exact upcast from f16): the
-    kernel reads f32 scales."""
+    """Cast every QuantTensor's ``scales``, ``super_scales`` and ``super_mins``
+    to f32 once (exact upcast from f16): the kernels read f32 scales.  Integer
+    sub-scales keep their type."""
     if isinstance(tree, dict):
         return {k: precast_quant_scales(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [precast_quant_scales(v) for v in tree]
     if isinstance(tree, QuantTensor):
-        return QuantTensor(tree.fmt, tree.shape, tree.data, tree.scales.float())
+        return QuantTensor(tree.fmt, tree.shape, **{
+            f: a.float() if f in _F32_FIELDS else a for f, a in tree.fields().items()})
     return tree

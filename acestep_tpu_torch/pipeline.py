@@ -31,7 +31,7 @@ from acestep_tpu_torch.constants import (
 )
 from acestep_tpu_torch.models import dit, qwen, vae
 from acestep_tpu_torch.ops.qlinear import precast_quant_scales
-from acestep_tpu_torch.quant import BLOCK, QuantTensor, quantize_q8_0
+from acestep_tpu_torch.quant import QUANT_FORMATS, quantize, supported_format_for
 
 VAE_CHUNK_FRAMES = 512      # decode window (the JAX planner's choice on a large card)
 VAE_WINDOW_BATCH = 4
@@ -264,12 +264,17 @@ class AceStepEngine:
 
 class _RandomInit:
     """Draws and quantizes weights on ``device`` one tensor at a time, so a
-    full-width engine never holds a bf16 copy of a whole model."""
+    full-width engine never holds a bf16 copy of a whole model.  Each kernel's
+    format follows the JAX package's ``quantize_tree_jax``: kernels of fewer
+    than ``MIN_QUANT_ELEMS`` elements stay bf16, and the rest take
+    ``supported_format_for(K, quant)`` (a 4-bit format falls back to q8_0 where
+    K % 256 != 0, q8_0 to bf16 where K % 32 != 0)."""
 
     def __init__(self, device: torch.device, seed: int, quant: Optional[str],
                  dtype=torch.bfloat16):
-        if quant not in (None, "q8_0"):
-            raise ValueError(f"quant {quant!r}: the port supports q8_0 only")
+        if quant is not None and quant not in QUANT_FORMATS:
+            raise ValueError(f"quant {quant!r}: the port has None (bf16) and "
+                             f"{', '.join(QUANT_FORMATS)}")
         self.device = device
         self.gen = torch.Generator(device=device).manual_seed(seed)
         self.quant = quant
@@ -278,22 +283,29 @@ class _RandomInit:
     def normal(self, shape, scale: float) -> torch.Tensor:
         return torch.randn(shape, generator=self.gen, device=self.device) * scale
 
-    def _quantized(self, k: int, n: int) -> bool:
-        return self.quant == "q8_0" and k % BLOCK == 0 and k * n >= MIN_QUANT_ELEMS
+    def _format(self, k: int, n: int) -> Optional[str]:
+        if self.quant is None or k * n < MIN_QUANT_ELEMS:
+            return None
+        fmt = supported_format_for(k, self.quant)
+        return fmt if fmt in QUANT_FORMATS else None
 
     def kernel(self, k: int, n: int, layers: Optional[int] = None, scale: float = 0.02):
         """A [K, N] linear kernel; with ``layers``, stacked [L, K, N]."""
-        if not self._quantized(k, n):
+        fmt = self._format(k, n)
+        if fmt is None:
             shape = (k, n) if layers is None else (layers, k, n)
             return self.normal(shape, scale).to(self.dtype)
         if layers is None:
-            return quantize_q8_0(self.normal((k, n), scale))
-        data = torch.empty((layers, k, n), dtype=torch.int8, device=self.device)
-        scales = torch.empty((layers, k // BLOCK, n), dtype=torch.float16, device=self.device)
+            return quantize(self.normal((k, n), scale), fmt)
+        stacked = None
         for li in range(layers):
-            qt = quantize_q8_0(self.normal((k, n), scale))
-            data[li], scales[li] = qt.data, qt.scales
-        return QuantTensor("q8_0", (k, n), data, scales)
+            qt = quantize(self.normal((k, n), scale), fmt)
+            if stacked is None:
+                stacked = qt.map(lambda a: torch.empty((layers,) + tuple(a.shape),
+                                                       dtype=a.dtype, device=a.device))
+            for f, a in qt.fields().items():
+                getattr(stacked, f)[li] = a
+        return stacked
 
     def ones(self, *shape):
         return torch.ones(shape, dtype=self.dtype, device=self.device)
@@ -417,7 +429,8 @@ def build_random_engine(device=None, quant: Optional[str] = "q8_0", seed: int = 
                         vae_cfg: Optional[VAEConfig] = None,
                         text_cfg: Optional[QwenConfig] = None) -> AceStepEngine:
     """Random-weight engine (full width by default), initialised and quantized
-    on ``device`` with a seeded torch.Generator there."""
+    on ``device`` with a seeded torch.Generator there.  ``quant``: q8_0, q4_0,
+    q4_k, q6_k, or None for bf16 kernels."""
     dev = resolve_device(device)
     dit_cfg, vae_cfg, text_cfg = dit_cfg or DiTConfig(), vae_cfg or VAEConfig(), \
         text_cfg or QwenConfig()

@@ -1,0 +1,88 @@
+"""Minimal safetensors reader and writer (numpy only): the port's own copy of
+the file format the JAX package reads and writes.
+
+Format: 8-byte little-endian header length, a JSON header
+``{name: {dtype, shape, data_offsets}}`` (optional ``__metadata__``), then the
+raw little-endian tensor bytes.  bf16 tensors are kept as raw ``uint16`` bits.
+Reads are lazy, through a memory map.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict
+
+import numpy as np
+
+_DTYPES = {
+    "F64": np.dtype("<f8"),
+    "F32": np.dtype("<f4"),
+    "F16": np.dtype("<f2"),
+    "BF16": np.dtype("<u2"),   # raw bits
+    "I64": np.dtype("<i8"),
+    "I32": np.dtype("<i4"),
+    "I16": np.dtype("<i2"),
+    "I8": np.dtype("<i1"),
+    "U8": np.dtype("<u1"),
+    "BOOL": np.dtype("<u1"),
+}
+
+_NP_TO_ST = {
+    np.dtype("float64"): "F64",
+    np.dtype("float32"): "F32",
+    np.dtype("float16"): "F16",
+    np.dtype("int64"): "I64",
+    np.dtype("int32"): "I32",
+    np.dtype("int16"): "I16",
+    np.dtype("int8"): "I8",
+    np.dtype("uint8"): "U8",
+    np.dtype("bool"): "BOOL",
+}
+
+
+class SafetensorsFile:
+    """Lazy reader over a memory-mapped safetensors file."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            (header_len,) = struct.unpack("<Q", f.read(8))
+            self.header = json.loads(f.read(header_len))
+        self.header.pop("__metadata__", None)
+        self._data_offset = 8 + header_len
+        self._mm = np.memmap(path, mode="r", dtype=np.uint8)
+
+    def tensor(self, name: str) -> np.ndarray:
+        e = self.header[name]
+        start = self._data_offset + e["data_offsets"][0]
+        end = self._data_offset + e["data_offsets"][1]
+        return np.frombuffer(self._mm[start:end], dtype=_DTYPES[e["dtype"]]).reshape(e["shape"])
+
+
+def save_safetensors(path: str, tensors: Dict[str, np.ndarray],
+                     dtype_map: Dict[str, str]) -> None:
+    """``dtype_map`` overrides the declared dtype per tensor name (raw-bits
+    uint16 arrays that are really BF16)."""
+    header: Dict[str, dict] = {}
+    offset = 0
+    blobs = []
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        if name in dtype_map:
+            st_dtype = dtype_map[name]
+        elif arr.dtype in _NP_TO_ST:
+            st_dtype = _NP_TO_ST[arr.dtype]
+        else:
+            raise ValueError(f"unsupported dtype {arr.dtype} for {name}")
+        raw = arr.tobytes()
+        header[name] = {"dtype": st_dtype, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    hjson = json.dumps(header).encode()
+    hjson += b" " * ((-len(hjson)) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hjson)))
+        f.write(hjson)
+        for b in blobs:
+            f.write(b)

@@ -2,9 +2,11 @@
 
 :func:`from_jax_numpy` takes one of the JAX package's parameter trees (nested
 dicts/lists) whose array leaves are numpy arrays (any array with
-``__array__``) and whose q8_0 weights are QuantTensor-like objects (``fmt``,
-``shape``, ``data``, ``scales`` attributes), and returns the same tree with
-torch tensors and :class:`acestep_tpu_torch.quant.QuantTensor` leaves.  The
+``__array__``) and whose quantized weights are QuantTensor-like objects
+(``fmt``, ``shape`` and the field attributes ``data``, ``data_hi``, ``scales``,
+``sub_scales``, ``sub_mins``, ``super_scales``, ``super_mins``), and returns the
+same tree with torch tensors and :class:`acestep_tpu_torch.quant.QuantTensor`
+leaves (every field of every format carried across).  The
 layouts are the same in both packages, so the port computes the same function
 on the converted tree.  No JAX import is needed: leaves are read through numpy.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from acestep_tpu_torch.quant import QuantTensor
+from acestep_tpu_torch.quant import FIELDS, QuantTensor
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -32,10 +34,9 @@ def from_jax_numpy(tree, device="cpu"):
     if tree is None:
         return None
     if hasattr(tree, "fmt"):
-        if tree.fmt != "q8_0":
-            raise ValueError(f"the port supports q8_0 weights only, got {tree.fmt}")
-        return QuantTensor("q8_0", tuple(int(s) for s in tree.shape),
-                           _tensor(tree.data, device), _tensor(tree.scales, device))
+        return QuantTensor(tree.fmt, tuple(int(s) for s in tree.shape),
+                           **{f: _tensor(getattr(tree, f), device) for f in FIELDS
+                              if getattr(tree, f, None) is not None})
     return _tensor(tree, device)
 
 

@@ -63,12 +63,12 @@ def test_qmm_kernel_vs_plain(dev, m, k, n):
 def test_qmm_stacked_kernel_vs_plain(dev):
     st = _qt(2048, 4096, 3, dev, layers=3)
     x = torch.randn((128, 2048), device=dev).bfloat16()
-    before = tqmm.launches
+    before = tqmm.KERNELS["q8_0"].launches
     for li in range(3):
         got = tqmm.qmm_stacked(x, st, li).float()
         torch.testing.assert_close(got, tqmm.qmm_plain(x, st.layer(li)).float(),
                                    atol=QMM_ATOL, rtol=QMM_RTOL)
-    assert tqmm.launches == before + 3
+    assert tqmm.KERNELS["q8_0"].launches == before + 3
 
 
 def _unit(c, seed, dev):

@@ -73,6 +73,9 @@ def test_stacked_layer_view_and_concat():
 def test_rejects_other_formats_and_shapes():
     with pytest.raises(ValueError):
         quantize_q8_0(torch.zeros(33, 4))
-    with pytest.raises(ValueError):
-        QuantTensor("q4_0", (32, 4), torch.zeros(32, 4, dtype=torch.int8),
+    with pytest.raises(ValueError):            # a format the port does not have
+        QuantTensor("q5_1", (32, 4), torch.zeros(32, 4, dtype=torch.int8),
+                    torch.zeros(1, 4))
+    with pytest.raises(ValueError):            # 4-bit K must be a multiple of 256
+        QuantTensor("q4_0", (32, 4), torch.zeros(16, 4, dtype=torch.uint8),
                     torch.zeros(1, 4))

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of one configs[0] request goes in the PyTorch/CUDA port.
+"""Where the time of one request goes in the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_request.py [--top 15]
+    python3 tools/profile_torch_request.py [--duration 10] [--quant q8_0] [--top 15]
 
-Builds the full-width random q8_0 engine on the card, answers the bench
-request once as a warm-up, then once under torch.profiler (CPU + CUDA
-activities).  Prints the device time by kernel name (top N), the device busy
-time against the request's wall time (the idle share), and the request's
-time_costs.  Needs one NVIDIA GPU; imports no JAX.
+Builds the full-width random engine at ``--quant`` on the card, answers the
+bench request (64 style + 256 lyric tokens, one seed; configs[0] is 10 s at
+q8_0, configs[1] 60 s at q4_0) once as a warm-up, then once under
+torch.profiler (CPU + CUDA activities).  Prints the device time by kernel name
+(top N), the device busy time against the request's wall time (the idle
+share), and the request's time_costs.  Needs one NVIDIA GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--duration", type=float, default=10.0)
+    ap.add_argument("--quant", default="q8_0", choices=("q8_0", "q4_0", "q4_k", "q6_k"))
     args = ap.parse_args()
 
     import numpy as np
@@ -35,10 +38,10 @@ def main() -> int:
         return 2
     from acestep_tpu_torch import pipeline
 
-    engine = pipeline.build_random_engine(device="cuda", quant="q8_0", seed=0)
+    engine = pipeline.build_random_engine(device="cuda", quant=args.quant, seed=0)
     rng = np.random.default_rng(0)
     req = pipeline.GenerationRequest(
-        duration_s=10.0, style_token_ids=rng.integers(0, 150000, (1, 64)),
+        duration_s=args.duration, style_token_ids=rng.integers(0, 150000, (1, 64)),
         lyric_token_ids=rng.integers(0, 150000, (1, 256)), seeds=[1])
     engine.generate(req)
     torch.cuda.synchronize()
@@ -52,7 +55,7 @@ def main() -> int:
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in kernels
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.duration:g} s at {args.quant}")
     print(f"request wall {wall_s * 1e3:.1f} ms under the profiler; device busy "
           f"{busy_ms:.1f} ms ({'not measured' if busy_ms == 0 else f'idle share {1 - busy_ms / (wall_s * 1e3):.3f}'})")
     for name, ms, count in rows[:args.top]:
