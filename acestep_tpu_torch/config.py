@@ -2,8 +2,9 @@
 the JAX package's config module).
 
 Defaults are the turbo DiT (2048 wide x 24 layers), the Qwen3-0.6B text
-encoder (1024 wide x 28 layers) and the ACE-Step 48 kHz stereo Oobleck VAE
-(hop 1920 -> 25 Hz latents, latent dim 64).
+encoder (1024 wide x 28 layers; also the LM planner's backbone, QWEN3_0_6B)
+and the ACE-Step 48 kHz stereo Oobleck VAE (hop 1920 -> 25 Hz latents, latent
+dim 64).
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ class QwenConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "QwenConfig":
         return cls(**_known_fields(cls, d))
+
+
+# the two LM planner sizes the reference ships (Qwen3-0.6B / 1.7B fine-tunes)
+QWEN3_0_6B = QwenConfig(
+    hidden_size=1024, num_hidden_layers=28, num_attention_heads=16,
+    num_key_value_heads=8, intermediate_size=3072,
+)
+QWEN3_1_7B = QwenConfig(
+    hidden_size=2048, num_hidden_layers=28, num_attention_heads=16,
+    num_key_value_heads=8, intermediate_size=6144,
+)
 
 
 @dataclasses.dataclass(frozen=True)

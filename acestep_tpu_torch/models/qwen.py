@@ -1,10 +1,11 @@
-"""Qwen3 transformer (text-encoder role) in PyTorch: port of the JAX package's
-models/qwen.py forward.
+"""Qwen3 transformer in PyTorch (text encoder and LM planner backbone): port of
+the JAX package's models/qwen.py.
 
 Per layer: RMSNorm -> GQA attention with per-head q/k RMSNorm + NEOX RoPE ->
 residual -> RMSNorm -> SwiGLU MLP -> residual; final RMSNorm.  Params are a
 plain dict; every ``*_proj`` kernel is ``[K, N]`` and may be a
-QuantTensor.  ``layers`` is a list of per-layer dicts, or (after
+QuantTensor; the serving path fuses q||k||v into ``qkv_proj`` and gate||up into
+``gateup_proj`` (serving/lm.py).  ``layers`` is a list of per-layer dicts, or (after
 :func:`stack_params`) one dict whose leaves carry a leading layer axis.
 """
 
@@ -29,6 +30,18 @@ from acestep_tpu_torch.models.stacking import iter_layers, stack_layer_params
 Params = Dict[str, Any]
 
 
+def init_params(cfg: QwenConfig, device=None, seed: int = 0, quant: Optional[str] = None,
+                dtype=torch.bfloat16) -> Params:
+    """Random params (stacked layers), drawn and quantized on ``device`` one
+    tensor at a time with a seeded torch.Generator there, so a full-width model
+    never sits in host memory.  ``quant``: None (``dtype`` kernels) or a quant
+    format for every kernel large enough (models/random_init.py)."""
+    from acestep_tpu_torch.models.random_init import RandomInit
+
+    dev = torch.device("cuda" if device is None else device)
+    return RandomInit(dev, seed, quant, dtype=dtype).qwen(cfg)
+
+
 def stack_params(params: Params) -> Params:
     if isinstance(params.get("layers"), list):
         params = dict(params)
@@ -51,8 +64,14 @@ def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask):
 
 
 def mlp_block(p: Params, x):
-    gate = linear(x, p["gate_proj"]["kernel"])
-    up = linear(x, p["up_proj"]["kernel"])
+    """SwiGLU MLP, through the fused gate||up weight when present."""
+    if "gateup_proj" in p:
+        gu = linear(x, p["gateup_proj"]["kernel"])
+        inter = gu.shape[-1] // 2
+        gate, up = gu[..., :inter], gu[..., inter:]
+    else:
+        gate = linear(x, p["gate_proj"]["kernel"])
+        up = linear(x, p["up_proj"]["kernel"])
     act = silu(gate.float()).to(x.dtype) * up
     return linear(act, p["down_proj"]["kernel"])
 
@@ -78,3 +97,16 @@ def forward(params: Params, cfg: QwenConfig, token_ids: torch.Tensor,
 def embeddings_only(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     """Embedding lookup (the lyric branch feeds raw embeddings to the DiT)."""
     return params["embed_tokens"][token_ids]
+
+
+def lm_logits(params: Params, cfg: QwenConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Final hidden states -> vocab logits.  A serving ``lm_head`` (quantized,
+    vocab padded to a multiple of 2048) is sliced back to ``vocab_size``;
+    without one the embeddings are tied: bf16 operands, f32 result."""
+    head = params.get("lm_head")
+    if head is not None:
+        logits = linear(hidden, head["kernel"])
+        return logits[..., : cfg.vocab_size]
+    emb = params["embed_tokens"]
+    return torch.matmul(hidden.to(torch.bfloat16).float(),
+                        emb.to(torch.bfloat16).float().t())

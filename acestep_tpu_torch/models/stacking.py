@@ -38,6 +38,15 @@ def layer_view(stacked, li: int):
     return stacked[li]
 
 
+def first_layers(stacked, n: int):
+    """The first ``n`` layers of stacked params (views, no copy)."""
+    if isinstance(stacked, dict):
+        return {k: first_layers(v, n) for k, v in stacked.items()}
+    if isinstance(stacked, QuantTensor):
+        return stacked.map(lambda a: a[:n])
+    return stacked[:n]
+
+
 def num_layers(layers) -> int:
     if isinstance(layers, list):
         return len(layers)

@@ -5,6 +5,7 @@ from .nn import (
     make_attention_mask,
     rms_norm,
     rope_cos_sin,
+    rotate_half,
     silu,
     sinusoidal_timestep_embedding,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "make_attention_mask",
     "rms_norm",
     "rope_cos_sin",
+    "rotate_half",
     "self_attention_masks",
     "silu",
     "sinusoidal_timestep_embedding",

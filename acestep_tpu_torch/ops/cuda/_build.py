@@ -20,12 +20,14 @@ pointers and the stream as ``ctypes.c_void_p``) and returns
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -37,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
     # x, w, scales, bias, out, M, N, K, out_bf16, stream
@@ -55,10 +58,45 @@ SIGNATURES = {
     # shared-memory bytes of one block: (C, dilation) / (C)
     "acestep_vae_res_unit_smem": [_I, _I],
     "acestep_vae_res_trio_smem": [_I],
+    # q, kc, ksc, vc, vsc, lengths, k_self, v_self, out, B, Hq, Hkv, T, li, tb, stream
+    "acestep_decode_attn": [_P] * 9 + [_I] * 6 + [_P],
+    # q, k, v, q_norm, k_norm, cos, sin, kc, ksc, vc, vsc, lengths, out, k_new,
+    # ks_new, v_new, vs_new, B, Hq, Hkv, T, li, tb, eps, stream
+    "acestep_decode_attn_fused": [_P] * 17 + [_I] * 6 + [_F, _P],
+    # 8 weight fields, scales_f16, 4 norms, kc, ksc, vc, vsc, lengths, x0, cos, sin,
+    # x, k_new, ks_new, v_new, vs_new, scratch, sync, stamps, L, B, H, Hq, Hkv, I, T,
+    # eps, grid, stream
+    "acestep_decode_mega": [_P] * 8 + [_I] + [_P] * 20 + [_I] * 7 + [_F, _I, _P],
+    # () -> shared-memory bytes of one block
+    "acestep_decode_mega_smem": [],
+    # (B, H, Hq, Hkv, I, T) -> floats of scratch
+    "acestep_decode_mega_scratch": [_I] * 6,
+    # () -> blocks of the cooperative grid (< 0: the occupancy query failed)
+    "acestep_decode_mega_grid": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last nvcc build (None: cached)
+
+
+@dataclasses.dataclass
+class Counted:
+    """A kernel's identity in the run's record and its launch counts
+    (``shapes`` counts launches by the shape key its wrapper gives)."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+    shapes: Counter = dataclasses.field(default_factory=Counter)
+
+    def count(self, shape) -> None:
+        self.launches += 1
+        self.shapes[shape] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.shapes.clear()
 
 
 def _sources():

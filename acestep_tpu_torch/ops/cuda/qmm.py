@@ -27,7 +27,6 @@ launches the format's kernel or raises.  Each kernel has its own entry in
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter
 from typing import Optional
 
 import torch
@@ -36,44 +35,34 @@ from acestep_tpu_torch.ops.cuda import _build
 from acestep_tpu_torch.quant import BLOCK, FOLD, SUB16, SUPER, QuantTensor, dequantize
 
 
-@dataclasses.dataclass
-class Kernel:
-    """One format's kernel: its C entry point, what it replaces, its counts."""
+@dataclasses.dataclass(kw_only=True)
+class Kernel(_build.Counted):
+    """One format's kernel: its counts (``Counted``) and its C entry point."""
 
-    name: str
     entry: str
-    source: str
-    replaces: str
     # (field, dtype, K rows per stored row) in the entry point's argument order
     fields: tuple
-    launches: int = 0
-    shapes: Counter = dataclasses.field(default_factory=Counter)
 
 
 _U8, _I8, _F32 = torch.uint8, torch.int8, torch.float32
 _Q4_SRC = "acestep_tpu_torch/csrc/qmm_q4.cu"
 KERNELS = {
-    "q8_0": Kernel("q8_0_qmm", "acestep_qmm_q8_0", "acestep_tpu_torch/csrc/qmm_q8_0.cu",
-                   "acestep_tpu/ops/pallas/qmm.py:147",
-                   (("data", _I8, 1), ("scales", _F32, BLOCK))),
-    "q4_0": Kernel("q4_0_qmm", "acestep_qmm_q4_0", _Q4_SRC,
-                   "acestep_tpu/ops/pallas/qmm.py:164",
-                   (("data", _U8, 2), ("scales", _F32, BLOCK))),
-    "q4_k": Kernel("q4_k_qmm", "acestep_qmm_q4_k", _Q4_SRC,
-                   "acestep_tpu/ops/pallas/qmm.py:187",
-                   (("data", _U8, 2), ("sub_scales", _U8, BLOCK), ("sub_mins", _U8, BLOCK),
-                    ("super_scales", _F32, SUPER), ("super_mins", _F32, SUPER))),
-    "q6_k": Kernel("q6_k_qmm", "acestep_qmm_q6_k", _Q4_SRC,
-                   "acestep_tpu/ops/pallas/qmm.py:208",
-                   (("data", _U8, 2), ("data_hi", _U8, 4), ("sub_scales", _I8, SUB16),
-                    ("super_scales", _F32, SUPER))),
+    "q8_0": Kernel("q8_0_qmm", "acestep_tpu_torch/csrc/qmm_q8_0.cu",
+                   "acestep_tpu/ops/pallas/qmm.py:147", entry="acestep_qmm_q8_0",
+                   fields=(("data", _I8, 1), ("scales", _F32, BLOCK))),
+    "q4_0": Kernel("q4_0_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:164",
+                   entry="acestep_qmm_q4_0",
+                   fields=(("data", _U8, 2), ("scales", _F32, BLOCK))),
+    "q4_k": Kernel("q4_k_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:187",
+                   entry="acestep_qmm_q4_k",
+                   fields=(("data", _U8, 2), ("sub_scales", _U8, BLOCK),
+                           ("sub_mins", _U8, BLOCK), ("super_scales", _F32, SUPER),
+                           ("super_mins", _F32, SUPER))),
+    "q6_k": Kernel("q6_k_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:208",
+                   entry="acestep_qmm_q6_k",
+                   fields=(("data", _U8, 2), ("data_hi", _U8, 4), ("sub_scales", _I8, SUB16),
+                           ("super_scales", _F32, SUPER))),
 }
-
-
-def reset_counts() -> None:
-    for kern in KERNELS.values():
-        kern.launches = 0
-        kern.shapes.clear()
 
 
 def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
@@ -123,8 +112,7 @@ def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
         x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), m, n, k,
         int(out_dtype == torch.bfloat16), _build.stream_ptr(x))
     _build.check(kern.entry, err)
-    kern.launches += 1
-    kern.shapes[(m, k, n)] += 1
+    kern.count((m, k, n))
     return out
 
 

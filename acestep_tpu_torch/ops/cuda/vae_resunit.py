@@ -16,41 +16,25 @@ intermediate in shared memory, and writes the tile once.
 
 Snake alpha/beta are exponentiated here, in the wrapper, as the JAX wrapper
 does.  A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  ``unit_launches`` / ``trio_launches`` count launches; ``*_shapes``
-count them by ``(N, L, C[, dilation])``.
+or raises.  ``UNIT`` / ``TRIO`` (``_build.Counted``) count launches, and by
+``(N, L, C[, dilation])``.
 """
 
 from __future__ import annotations
-
-from collections import Counter
 
 import torch
 import torch.nn.functional as F
 
 from acestep_tpu_torch.ops.cuda import _build
 
-UNIT_NAME = "vae_res_unit"
-TRIO_NAME = "vae_res_trio"
 SOURCE = "acestep_tpu_torch/csrc/vae_resunit.cu"
-UNIT_REPLACES = "acestep_tpu/ops/pallas/vae_resunit.py:52"
-TRIO_REPLACES = "acestep_tpu/ops/pallas/vae_resunit.py:255"
+# launches counted by (N, L, C, dilation) / (N, L, C)
+UNIT = _build.Counted("vae_res_unit", SOURCE, "acestep_tpu/ops/pallas/vae_resunit.py:52")
+TRIO = _build.Counted("vae_res_trio", SOURCE, "acestep_tpu/ops/pallas/vae_resunit.py:255")
 TRIO_D = (1, 3, 9)
 UNIT_CHANNELS = (128, 256)
 TRIO_CHANNELS = (128,)
 MAX_SMEM = 232448          # bytes of shared memory one block may use on sm_90
-
-unit_launches = 0
-trio_launches = 0
-unit_shapes: Counter = Counter()     # (N, L, C, dilation) -> launches
-trio_shapes: Counter = Counter()     # (N, L, C) -> launches
-
-
-def reset_counts() -> None:
-    global unit_launches, trio_launches
-    unit_launches = trio_launches = 0
-    unit_shapes.clear()
-    trio_shapes.clear()
-
 
 def unit_tensors(p, device=None):
     """A res-unit param dict -> (w1 [7,C,C], b1, w2 [C,C], b2, a1, be1, a2, be2),
@@ -103,7 +87,6 @@ def _check_x(x: torch.Tensor, channels, name: str) -> torch.Tensor:
 
 
 def launch_unit(x: torch.Tensor, tensors, dilation: int) -> torch.Tensor:
-    global unit_launches
     x = _check_x(x, UNIT_CHANNELS, "fused_res_unit")
     n, l, c = x.shape
     lib = _build.lib()
@@ -115,13 +98,11 @@ def launch_unit(x: torch.Tensor, tensors, dilation: int) -> torch.Tensor:
     err = lib.acestep_vae_res_unit(x.data_ptr(), *(t.data_ptr() for t in tensors),
                                    out.data_ptr(), n, l, c, dilation, _build.stream_ptr(x))
     _build.check("acestep_vae_res_unit", err)
-    unit_launches += 1
-    unit_shapes[(n, l, c, dilation)] += 1
+    UNIT.count((n, l, c, dilation))
     return out
 
 
 def launch_trio(x: torch.Tensor, stacked) -> torch.Tensor:
-    global trio_launches
     x = _check_x(x, TRIO_CHANNELS, "fused_res_trio")
     n, l, c = x.shape
     out = torch.empty_like(x)
@@ -129,8 +110,7 @@ def launch_trio(x: torch.Tensor, stacked) -> torch.Tensor:
         x.data_ptr(), *(t.data_ptr() for t in stacked), out.data_ptr(), n, l, c,
         _build.stream_ptr(x))
     _build.check("acestep_vae_res_trio", err)
-    trio_launches += 1
-    trio_shapes[(n, l, c)] += 1
+    TRIO.count((n, l, c))
     return out
 
 

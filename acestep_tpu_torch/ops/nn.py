@@ -28,17 +28,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, base: float = 1e6,
                  dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions [L] -> (cos, sin) each [L, head_dim]."""
+    """positions [L] -> (cos, sin) each [L, head_dim].  Device ops only (no
+    tensor made from host data), so a decode step never waits on the host."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
-                                            device=positions.device), exps)
+    inv_freq = 1.0 / torch.pow(float(base), exps)
     freqs = positions.float()[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
@@ -47,7 +47,7 @@ def apply_rope(q, k, cos, sin):
     """q, k: [..., L, head_dim]; cos/sin: [L, head_dim]."""
     cos = cos.to(q.dtype)
     sin = sin.to(q.dtype)
-    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+    return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
 
 
 def make_attention_mask(q_len: int, k_len: int, kv_valid: Optional[torch.Tensor] = None,

@@ -37,9 +37,35 @@ Phases, each announced by a timestamped line:
                 output, exactly
  11. recheck    every (kernel, shape) the served requests launched that phase 3
                 did not cover, against the plain version
- 12. timing     kernel, plain-version and library-call times at the served
+ 12. check_lm   the LM decode kernels against their plain versions at the
+                0.6B planner's full width (16 query / 8 kv heads, 28 layers of
+                int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
+                ragged: decode_attn and decode_attn_fused 2e-2 (the fused new
+                K/V int8 within 2); decode_mega through its first 2 and all 28
+                layers, each depth held to 1.5x the drift measured in this run
+                between its plain version on the card and on the CPU (x max
+                error / peak, K/V int8 and scales, never tighter than the JAX
+                test's 2e-2, 2, 2e-2; the shares of x and of the new K/V that
+                differ), argmax equal, reruns bit-identical; then four planted
+                faults in the plain version, each of which one depth rejects
+ 13. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
+                quantized head, int8 KV), drawn on the card
+ 14. lm_serve   configs[2]'s LM request through
+                LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
+                100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
+                0.95): three times on the default path (megakernel), once with
+                decode_mega=0 decode_attn=pallas, once with fused, and once
+                with thinking (free CoT), cfg 2.0 and batch 4; time_costs and
+                launches of every request
+ 15. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 11
+ 16. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
+                same LM on the CPU (plain versions): logits within 2e-2 of the
+                peak, tokens equal up to the first step whose CPU top-1/top-2
+                gap is below 2e-2 of the peak
+ 17. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
-                over 989 TFLOP/s bf16 / 67 TFLOP/s f32)
+                over 989 TFLOP/s bf16 / 67 TFLOP/s f32); the LM kernels at
+                three valid lengths of the request, weighted by its launches
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -66,6 +92,27 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 FOUR_BIT = ("q4_0", "q4_k", "q6_k")
+# LM planner (configs[2]'s codes phase, tools/bench_full_pipeline.py:151-152)
+LM_CAPTION = "epic orchestral with soaring strings"
+LM_LYRICS = "[verse]\nacross the silver sea\n[chorus]\nrise again\n"
+LM_DURATION_S = 120.0
+LM_CODES = 600                 # 120 s at 5 codes/s (code bucket 768)
+LM_T = 1408                    # cache length of that request (round_len(512 + 768 + 1))
+ATTN_TOL = 2e-2                # test_decode_attn_pallas.py:52
+MEGA_REL = 2e-2                # test_decode_mega.py:64-70: logits / rows
+INT8_MAX_DIFF = 2              # test_decode_mega.py:70: cache int8
+SCALE_RTOL = 2e-2              # test_decode_mega.py: new K/V scales
+# The megakernel: two correct orders of the same f32 sums part by a bf16 step
+# of the residual now and then, and that grows with depth.  check_lm measures
+# that drift in every run (the plain version on the card against itself on the
+# CPU, on the same inputs) at 2 and at 28 layers, and holds the kernel at each
+# depth to DRIFT_FACTOR times it: errors never tighter than the JAX bounds, and
+# the shares of x and of the new K/V that differ from the plain version
+DRIFT_FACTOR = 1.5
+# the plain version with one rule of the megakernel's numerics broken
+# (decode_mega.py:208-354), run beside it to show what each bound can see
+MEGA_FAULTS = ("qkv rounded to bf16", "probabilities against the chunk max",
+               "residual kept in f32", "self term dropped")
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -283,29 +330,33 @@ def shapes_by_kernel(fmt, shapes):
     return out
 
 
-def snapshot_counts():
-    """(launches by kernel name, shapes by kernel name) since the last reset."""
-    from acestep_tpu_torch.ops.cuda import qmm
+def counted_kernels():
+    """Every kernel's launch counter (``_build.Counted``)."""
+    from acestep_tpu_torch.ops.cuda import decode_attn, decode_mega, qmm
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
-    n = {k.name: k.launches for k in qmm.KERNELS.values()}
-    n[vru.UNIT_NAME], n[vru.TRIO_NAME] = vru.unit_launches, vru.trio_launches
-    shapes = {k.name: dict(k.shapes) for k in qmm.KERNELS.values()}
-    shapes[vru.UNIT_NAME], shapes[vru.TRIO_NAME] = dict(vru.unit_shapes), dict(vru.trio_shapes)
-    return n, shapes
+    return [*qmm.KERNELS.values(), vru.UNIT, vru.TRIO, decode_attn.ATTN, decode_attn.FUSED,
+            decode_mega.MEGA]
+
+
+def reset_counts() -> None:
+    for k in counted_kernels():
+        k.reset()
+
+
+def snapshot_counts():
+    """(launches by kernel name, shapes by kernel name) since the last reset."""
+    kernels = counted_kernels()
+    return {k.name: k.launches for k in kernels}, {k.name: dict(k.shapes) for k in kernels}
 
 
 def serve(engine, req, label, n_requests, need):
     """``n_requests`` of ``req`` (the first a warm-up), the counts reset just
     before each and read just after; every kernel named in ``need`` must launch
     in each.  Returns the results and the last request's (launches, shapes)."""
-    from acestep_tpu_torch.ops.cuda import qmm
-    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
-
     results, counts = [], None
     for i in range(n_requests):
-        qmm.reset_counts()
-        vru.reset_counts()
+        reset_counts()
         res = engine.generate(req)
         counts = snapshot_counts()
         results.append(res)
@@ -341,6 +392,333 @@ def free_engine() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# LM planner helpers
+# ---------------------------------------------------------------------------
+
+class ByteTokenizer:
+    """The byte-level tokenizer of tools/bench_full_pipeline.py:98-116: random
+    weights need no real vocabulary, only the special ids of the LM's.  The
+    code range is moved 26 ids down from the bench's [87669, 151669) so that it
+    ends just below EOS (151643): the bench's range holds its own EOS and
+    think-end ids, so the codes phase would count the forced EOS as a 601st
+    code."""
+
+    eos_token_id = 151643
+    think_end_id = 151644
+    audio_code_base_id = 151643 - 64000
+
+    def encode(self, text):
+        return [b % 50000 for b in text.encode()][:512]
+
+    def decode(self, ids):
+        out = []
+        for i in ids:
+            i = int(i)
+            if i == self.think_end_id:
+                out.append("</think>")
+            elif i >= self.audio_code_base_id:
+                out.append(f"<|audio_code_{i - self.audio_code_base_id}|>")
+            else:
+                out.append(chr(i % 94 + 32))
+        return "".join(out)
+
+
+def random_cache(g, b, t_max, n_layers=28, hkv=8):
+    import torch
+    from acestep_tpu_torch.serving import kv_cache as kvc
+
+    kq, ks = kvc.quantize_kv(torch.randn((n_layers, b, hkv, t_max, 128), generator=g,
+                                         device="cuda"))
+    vq, vs = kvc.quantize_kv(torch.randn((n_layers, b, hkv, t_max, 128), generator=g,
+                                         device="cuda"))
+    return kq, ks, vq, vs
+
+
+def attn_case(b, lengths, seed, t_max=LM_T):
+    """Full-width inputs of rows 9 and 10 (16 query heads, 8 kv heads, 28
+    layers of cache)."""
+    import torch
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kq, ks, vq, vs = random_cache(g, b, t_max)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn((b, h, 128), generator=g, device="cuda").bfloat16()
+               for h in (16, 8, 8))
+    qn, kn = (torch.randn(128, generator=g, device="cuda") for _ in range(2))
+    cos, sin = (t[:, 0] for t in lm_serving._rope_at(lens, 128, 1e6))
+    return dict(q=q, k=k, v=v, qn=qn, kn=kn, cos=cos, sin=sin, cache=(kq, ks, vq, vs),
+                lens=lens)
+
+
+def attn_args(c, li):
+    return (c["q"], *c["cache"], c["lens"], li, c["k"], c["v"])
+
+
+def fused_args(c, li):
+    return (c["q"], c["k"], c["v"], c["qn"], c["kn"], c["cos"], c["sin"], *c["cache"],
+            c["lens"], li)
+
+
+def mega_case(layers, b, lengths, seed, t_max=LM_T, n_layers=28):
+    import torch
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kq, ks, vq, vs = random_cache(g, b, t_max, n_layers)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    x0 = (torch.randn((b, 1024), generator=g, device="cuda") * 0.02).bfloat16()
+    cos, sin = (t[:, 0] for t in lm_serving._rope_at(lens, 128, 1e6))
+    return (kq, ks, vq, vs, lens, x0, cos, sin)
+
+
+def check_attn_pair(label, got, ref, fused: bool) -> float:
+    import torch
+
+    if not fused:
+        return check_close(label, got, ref, ATTN_TOL, ATTN_TOL)
+    err = check_close(label, got[0], ref[0], ATTN_TOL, ATTN_TOL)
+    d8 = max(int((got[i].int() - ref[i].int()).abs().max()) for i in (1, 3))
+    sc = all(bool(torch.allclose(got[i], ref[i], rtol=2e-2, atol=1e-6)) for i in (2, 4))
+    log(f"    new K/V int8 max diff {d8} (<= {INT8_MAX_DIFF}), scales within rtol 2e-2 {sc}")
+    require(d8 <= INT8_MAX_DIFF and sc, f"{label}: new K/V disagree with the plain version")
+    return err
+
+
+def mega_diff(got, ref, gap_rel: float):
+    """How far two megakernel outputs part: x max err / peak of ``ref``, the
+    share of x equal, K/V int8 max diff, the scales' largest error beyond 1e-6
+    relative to ``ref``'s, and (rows with the same argmax, rows whose top-1 /
+    top-2 gap in ``ref`` is at least ``gap_rel`` of the peak)."""
+    import torch
+
+    x, xr = got[0].float(), ref[0].float()
+    peak = float(xr.abs().max())
+    top2 = torch.topk(xr, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) >= gap_rel * peak
+    same = (x.argmax(-1) == xr.argmax(-1))[sure]
+    return dict(
+        rel=float((x - xr).abs().max()) / peak, x_equal=float((x == xr).float().mean()),
+        int8=max(int((got[i].int() - ref[i].int()).abs().max()) for i in (1, 3)),
+        kv_equal=min(float((got[i] == ref[i]).float().mean()) for i in (1, 3)),
+        scale=max(float(((got[i] - ref[i]).abs() - 1e-6).clamp(min=0).div(
+            ref[i].abs().clamp(min=1e-30)).max()) for i in (2, 4)),
+        argmax=(int(same.sum()), int(sure.sum())), finite=bool(torch.isfinite(x).all()))
+
+
+def mega_bounds(drift):
+    """Bounds (x max err / peak, K/V int8 max diff, scales rel err, least share
+    of x equal, of K/V int8 equal) at DRIFT_FACTOR x the drift readings, the
+    errors never tighter than the JAX test's."""
+    f = DRIFT_FACTOR
+    return (max(MEGA_REL, f * max(d["rel"] for d in drift)),
+            max(INT8_MAX_DIFF, math.ceil(f * max(d["int8"] for d in drift))),
+            max(SCALE_RTOL, f * max(d["scale"] for d in drift)),
+            1.0 - f * (1.0 - min(d["x_equal"] for d in drift)),
+            1.0 - f * (1.0 - min(d["kv_equal"] for d in drift)))
+
+
+def mega_passes(d, bounds) -> bool:
+    rel_max, int8_max, sc_rtol, x_equal, kv_equal = bounds
+    return (d["rel"] < rel_max and d["argmax"][0] == d["argmax"][1] and d["int8"] <= int8_max
+            and d["scale"] <= sc_rtol and d["x_equal"] >= x_equal
+            and d["kv_equal"] >= kv_equal and d["finite"])
+
+
+def mega_line(d) -> str:
+    return (f"x max err / peak {d['rel']:.3e}, argmax equal {d['argmax'][0]}/{d['argmax'][1]} "
+            f"rows, K/V int8 max diff {d['int8']}, scales rel err {d['scale']:.2e}, equal: "
+            f"x {d['x_equal']:.4f} K/V int8 {d['kv_equal']:.4f}")
+
+
+def mega_plain_faulty(layers, cfg, fault, cache_k, cache_ks, cache_v, cache_vs, lengths,
+                      x0, cos, sin):
+    """decode_layers_mega_plain with the rule ``fault`` (one of MEGA_FAULTS)
+    broken, everything else as there."""
+    import torch
+    from acestep_tpu_torch.ops.cuda.decode_mega import NEG, _bf, _rms, _weights
+    from acestep_tpu_torch.ops.nn import rotate_half
+    from acestep_tpu_torch.quant import dequantize
+    from acestep_tpu_torch.quant.kv import quantize_kv
+
+    n_layers, _, hkv, t_max, d = cache_k.shape
+    b, hq, inter, eps = x0.shape[0], cfg.num_attention_heads, cfg.intermediate_size, \
+        cfg.rms_norm_eps
+    g, qdim, kvdim, nch = hq // hkv, hq * d, hkv * d, t_max // 128
+
+    def mm(x, w, li):
+        return x @ dequantize(w.layer(li), torch.bfloat16).float()
+
+    res = (lambda t: t) if fault == "residual kept in f32" else _bf
+    wqkv, wo, wgu, wdn = _weights(layers)
+    cos, sin = cos.float()[:, None, :], sin.float()[:, None, :]
+    valid = (torch.arange(t_max, device=x0.device)[None, :] < lengths[:, None])[:, None, None]
+    x, outs = x0.float(), []
+    for li in range(n_layers):
+        qkv = mm(_bf(_rms(x, layers["input_norm"][li], eps)), wqkv, li)
+        if fault == "qkv rounded to bf16":
+            qkv = _bf(qkv)
+        q = _rms(qkv[:, :qdim].reshape(b, hq, d), layers["q_norm"][li], eps)
+        k = _rms(qkv[:, qdim:qdim + kvdim].reshape(b, hkv, d), layers["k_norm"][li], eps)
+        v = qkv[:, qdim + kvdim:].reshape(b, hkv, d)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+        outs.append((*quantize_kv(k), *quantize_kv(v)))
+        qg = q.reshape(b, hkv, g, d)
+        s = torch.einsum("bhgd,bhtd->bhgt", _bf(qg), cache_k[li].float())
+        s = torch.where(valid, s * (1.0 / math.sqrt(d)) * cache_ks[li][:, :, None, :], NEG)
+        s_self = (qg * k[:, :, None, :]).sum(-1) * (1.0 / math.sqrt(d))
+        if fault == "self term dropped":
+            s_self = torch.full_like(s_self, NEG)
+        m = torch.maximum(s.amax(-1), s_self)
+        vs = cache_vs[li][:, :, None, :]
+        if fault == "probabilities against the chunk max":
+            sc = s.view(b, hkv, g, nch, 128)
+            mc = sc.amax(-1, keepdim=True)
+            e = torch.where(valid.view(b, 1, 1, nch, 128), torch.exp(sc - mc), 0.0)
+            p = _bf(e * vs.view(b, hkv, 1, nch, 128)) * torch.exp(mc - m[..., None, None])
+            e = (e * torch.exp(mc - m[..., None, None])).view(s.shape)
+            p = p.view(s.shape)
+        else:
+            e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+            p = _bf(e * vs)
+        e_self = torch.exp(s_self - m)
+        o = torch.einsum("bhgt,bhtd->bhgd", p, cache_v[li].float())
+        o = (o + e_self[..., None] * v[:, :, None, :]) / (e.sum(-1) + e_self)[..., None]
+        x = res(x + mm(_bf(o.reshape(b, qdim)), wo, li))
+        gu = mm(_bf(_rms(x, layers["post_norm"][li], eps)), wgu, li)
+        act = _bf(_bf(gu[:, :inter] * torch.sigmoid(gu[:, :inter])) * _bf(gu[:, inter:]))
+        x = res(x + mm(act, wdn, li))
+    return (x, *(torch.stack([o[i] for o in outs]) for i in range(4)))
+
+
+def check_mega(check_layers, cfg) -> float:
+    """Row 11 against its plain version at the 0.6B shapes through the first 2
+    and all 28 layers, at the bounds ``mega_bounds`` derives from this run's
+    drift of the plain version (card against CPU) at that depth; argmax equal
+    in every row at 2 layers, at 28 where the plain row's top-1 / top-2 gap is
+    at least the x bound; reruns bit-identical.  Then the planted faults: each
+    must fail the check at one of the two depths.  Returns the x max abs error."""
+    import torch
+    from acestep_tpu_torch import weights
+    from acestep_tpu_torch.models.stacking import first_layers
+    from acestep_tpu_torch.ops.cuda import decode_mega
+
+    name = decode_mega.MEGA.name
+    cases = ((1, [1]), (1, [128]), (1, [901]), (4, [1, 128, 555, 1407]),
+             (8, [1, 128, 129, 640, 1000, 1300, 1406, 1407]))
+    depths = {2: (dataclasses.replace(cfg, num_hidden_layers=2), first_layers(check_layers, 2)),
+              cfg.num_hidden_layers: (cfg, check_layers)}
+    cpu_layers = weights.tree_to(check_layers, "cpu")
+    err, t_cpu, last = 0.0, 0.0, {}
+    runs = {n_l: [] for n_l in depths}          # (label, kernel, plain, plain on the CPU)
+    for i, (b, lengths) in enumerate(cases):
+        for n_l, (cfg_d, layers_d) in depths.items():
+            args = mega_case(layers_d, b, lengths, 70 + i, n_layers=n_l)
+            label = f"{name} {n_l} layers B={b} T={LM_T} lengths={lengths}"
+            require(decode_mega.supported(layers_d, cfg_d, b, LM_T),
+                    f"megakernel gate refuses B={b} T={LM_T}")
+            got = decode_mega.decode_layers_mega(layers_d, cfg_d, *args)
+            again = decode_mega.decode_layers_mega(layers_d, cfg_d, *args)
+            require(all(bool(torch.equal(a, c)) for a, c in zip(got, again)),
+                    f"{label}: two launches on the same inputs differ")
+            ref = decode_mega.decode_layers_mega_plain(layers_d, cfg_d, *args)
+            err = max(err, max_err(got[0], ref[0]))
+            t = time.perf_counter()
+            cpu = decode_mega.decode_layers_mega_plain(
+                first_layers(cpu_layers, n_l), cfg_d, *(a.cpu() for a in args))
+            t_cpu += time.perf_counter() - t
+            runs[n_l].append((label, got, ref, cpu))
+            last[n_l] = (args, ref)             # the faults run on the last case (B = 8)
+    bounds = {}
+    for n_l, rs in runs.items():
+        drift = [mega_diff([a.cpu() for a in ref], cpu, 0.0) for _, _, ref, cpu in rs]
+        for (label, *_), d in zip(rs, drift):
+            log(f"  {label}: plain on the card vs on the CPU: {mega_line(d)}")
+        bounds[n_l] = mega_bounds(drift)
+        log(f"  {n_l} layers, bounds at {DRIFT_FACTOR} x that drift: x max err / peak < "
+            f"{bounds[n_l][0]:.3e}, K/V int8 <= {bounds[n_l][1]}, scales rel err <= "
+            f"{bounds[n_l][2]:.2e}, equal: x >= {bounds[n_l][3]:.4f} K/V int8 >= "
+            f"{bounds[n_l][4]:.4f}; argmax equal "
+            f"{'in every row' if n_l == 2 else 'where the top-1/top-2 gap >= the x bound'}")
+    log(f"  (the plain version on the CPU took {t_cpu:.1f} s)")
+    for n_l, rs in runs.items():
+        for label, got, ref, _ in rs:
+            d = mega_diff(got, ref, 0.0 if n_l == 2 else bounds[n_l][0])
+            ok = mega_passes(d, bounds[n_l])
+            log(f"  {label}: {mega_line(d)} {'ok' if ok else 'FAIL'}")
+            require(ok, f"{label}: megakernel disagrees with its plain version")
+    passed = []
+    for fault in MEGA_FAULTS:
+        seen = []
+        for n_l, (cfg_d, layers_d) in depths.items():
+            args, ref = last[n_l]
+            d = mega_diff(mega_plain_faulty(layers_d, cfg_d, fault, *args), ref,
+                          0.0 if n_l == 2 else bounds[n_l][0])
+            seen.append(not mega_passes(d, bounds[n_l]))
+            log(f"  planted fault '{fault}', {n_l} layers B=8: {mega_line(d)} -> "
+                f"{'rejected' if seen[-1] else 'passes'}")
+        if not any(seen):
+            passed.append(fault)
+    require(not passed, f"planted faults {passed} pass both megakernel checks")
+    return err
+
+
+def lm_weight_bytes(cfg):
+    """Bytes of the layers' q8_0 weights as stored (int8 + f16 scale per 32)."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    qdim, kvdim = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    kn = h * (qdim + 2 * kvdim) + qdim * h + h * 2 * inter + inter * h
+    return cfg.num_hidden_layers * kn * (1 + 2 / 32), cfg.num_hidden_layers * kn
+
+
+def attn_bound(b, n, fused):
+    """Least time of one row 9 / 10 launch at valid length n: the valid K/V
+    rows and scales, q, the self K/V, the output (and the fused prologue's
+    extra inputs and outputs) once each; 4 x B x Hq x n x D operations."""
+    nbytes = b * 8 * n * (128 + 4) * 2 + b * (16 * 128 * 2 + 2 * 8 * 128 * 2 + 16 * 128 * 4) + 4 * b
+    if fused:
+        nbytes += 2 * 128 * 4 + b * 2 * 128 * 4 + b * 2 * 8 * (128 + 4)
+    return bound_ms(nbytes, 4.0 * b * 16 * n * 128, BF16_FLOPS)
+
+
+def mega_bound(cfg, b, lengths):
+    """Least time of one megakernel launch: the layers' q8_0 weights as stored,
+    the norm weights, the valid K/V rows and scales of every layer, x in and
+    out, the new K/V once each; 2 x B FLOP per weight and the attention's
+    4 x B x Hq x n x D per layer."""
+    stored, kn = lm_weight_bytes(cfg)
+    n_l, h = cfg.num_hidden_layers, cfg.hidden_size
+    kv = sum(n_l * 8 * n * (128 + 4) * 2 for n in lengths)
+    nbytes = stored + n_l * (2 * h + 2 * 128) * 4 + kv + b * (h * 2 + 2 * 128 * 4 + h * 4) \
+        + n_l * b * 8 * (128 + 4) * 2
+    ops = 2.0 * b * kn + sum(4.0 * n_l * 16 * n * 128 for n in lengths)
+    return bound_ms(nbytes, ops, BF16_FLOPS)
+
+
+def lm_request(pipe, label, need, kw):
+    """One LM request through generate_with_stop_condition with the counts set
+    to 0 just before it and read just after; checks the codes contract."""
+    import numpy as np
+
+    reset_counts()
+    res = pipe.generate_with_stop_condition(LM_CAPTION, LM_LYRICS, LM_DURATION_S, **kw)
+    counts, shapes = snapshot_counts()
+    shapes = shapes["q8_0_qmm"]
+    log(f"{label}: time_costs " + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
+    log(f"{label}: launches " + json.dumps({k: v for k, v in counts.items() if v}))
+    require(all(counts[n] > 0 for n in need), f"{label}: a kernel of the path was not "
+            f"launched (need {need}, got {counts})")
+    for c in res.candidates:
+        require(len(c) == LM_CODES and c.dtype == np.int32 and int(c.min()) >= 0
+                and int(c.max()) < 64000,
+                f"{label}: codes {len(c)} in [{c.min()}, {c.max()}] (need {LM_CODES} "
+                f"in [0, 64000))")
+    log(f"{label}: {len(res.candidates)} x {LM_CODES} codes in [0, 64000); first "
+        f"{res.code_indices[:6].tolist()}")
+    return res, counts, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +762,7 @@ def run() -> int:
 
     dit_cfg, text_cfg, vae_cfg = DiTConfig(), QwenConfig(), VAEConfig()
     names = {fmt: k.name for fmt, k in qmm.KERNELS.items()}
-    unit, trio = vru.UNIT_NAME, vru.TRIO_NAME
+    unit, trio = vru.UNIT.name, vru.TRIO.name
     phase("check")
     checked = {name: set() for name in list(names.values()) + [unit, trio]}
     errs = {name: 0.0 for name in checked}
@@ -551,6 +929,128 @@ def run() -> int:
                 errs[trio] = max(errs[trio], check_trio(shape, 99))
                 checked[trio].add(shape)
 
+    # ---- the LM planner: configs[2]'s codes phase ----
+    from acestep_tpu_torch import lm_pipeline
+    from acestep_tpu_torch.config import QWEN3_0_6B
+    from acestep_tpu_torch.models import qwen
+    from acestep_tpu_torch.ops.cuda import decode_attn, decode_mega
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    attn_name, fused_name, mega_name = (decode_attn.ATTN.name, decode_attn.FUSED.name,
+                                        decode_mega.MEGA.name)
+    for name in (attn_name, fused_name, mega_name):
+        errs[name] = 0.0
+
+    phase("check_lm")
+    attn_cases = ((1, [1]), (1, [128]), (1, [777]), (4, [1, 128, 700, 1408]),
+                  (8, [1, 128, 129, 640, 1000, 1300, 1407, 1408]))
+    for i, (b, lengths) in enumerate(attn_cases):
+        c = attn_case(b, lengths, 50 + i)
+        for li in (0, 27):
+            tag = f"B={b} T={LM_T} lengths={lengths} layer {li}"
+            errs[attn_name] = max(errs[attn_name], check_attn_pair(
+                f"{attn_name} {tag}", decode_attn.decode_attention_int8_stacked(*attn_args(c, li)),
+                decode_attn.decode_attention_plain(*attn_args(c, li)), False))
+            errs[fused_name] = max(errs[fused_name], check_attn_pair(
+                f"{fused_name} {tag}",
+                decode_attn.decode_attention_fused_stacked(*fused_args(c, li)),
+                decode_attn.decode_attention_fused_plain(*fused_args(c, li)), True))
+        del c
+    t = time.perf_counter()
+    check_layers = lm_serving.fuse_serving_params(
+        qwen.init_params(QWEN3_0_6B, device="cuda", seed=11, quant="q8_0"))["layers"]
+    log(f"28-layer q8_0 weights for the megakernel check drawn in {time.perf_counter() - t:.1f} s")
+    errs[mega_name] = check_mega(check_layers, QWEN3_0_6B)
+    del check_layers
+    free_engine()
+
+    phase("lm_engine")
+    t = time.perf_counter()
+    lm_params = qwen.init_params(QWEN3_0_6B, device="cuda", seed=7, quant="q8_0")
+    pipe = lm_pipeline.LMPipeline(lm_params, QWEN3_0_6B, ByteTokenizer(), device="cuda")
+    del lm_params
+    free_engine()
+    torch.cuda.synchronize()
+    memory["lm 0.6B q8_0"] = torch.cuda.memory_allocated() / 2**30
+    log(f"full-width 0.6B q8_0 LM (fused, quantized head, int8 KV) built on the card in "
+        f"{time.perf_counter() - t:.1f} s; device memory {memory['lm 0.6B q8_0']:.2f} GiB")
+
+    phase("lm_serve")
+    base_kw = dict(thinking=False, user_metadata={"bpm": 100}, temperature=0.85, top_p=0.95,
+                   cfg_scale=1.0, batch_size=1, seed=0)
+    lm_runs = {}
+    for i in range(3):
+        lm_runs[f"default {i}"] = lm_request(
+            pipe, f"configs[2] LM request {i} ({'warm-up' if i == 0 else 'timed'})",
+            [mega_name, "q8_0_qmm"], base_kw)
+    require(np.array_equal(lm_runs["default 1"][0].code_indices,
+                           lm_runs["default 2"][0].code_indices),
+            "two runs of one LM request differ")
+    for mode, name in (("pallas", attn_name), ("fused", fused_name)):
+        alt = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, ByteTokenizer(), device="cuda",
+                                     decode_mega="0", decode_attn=mode)
+        lm_runs[mode] = lm_request(alt, f"configs[2] LM request, decode_mega=0 "
+                                   f"decode_attn={mode}", [name, "q8_0_qmm"], base_kw)
+        require(lm_runs[mode][1][mega_name] == 0, f"decode_mega=0 still ran {mega_name}")
+    hits = pipe.prefix_cache.hits
+    lm_runs["thinking"] = lm_request(
+        pipe, "LM request, thinking (free CoT), cfg 2.0, batch 4", [mega_name, "q8_0_qmm"],
+        dict(thinking=True, temperature=0.85, top_p=0.95, cfg_scale=2.0, batch_size=4, seed=3))
+    require(len(lm_runs["thinking"][0].candidates) == 4, "batch 4 returned another count")
+    require(pipe.prefix_cache.hits > hits, "phase 2 did not reuse the phase-1 prefill")
+    log(f"prefix cache: {pipe.prefix_cache.hits} hits, {pipe.prefix_cache.misses} misses; "
+        f"CoT {lm_runs['thinking'][0].cot_text[:60]!r}...")
+
+    phase("recheck_lm")
+    for key, (_, _, shapes) in lm_runs.items():
+        for shape in shapes:
+            if shape not in checked[names["q8_0"]]:
+                qcheck("q8_0", shape, 99)
+
+    phase("output_lm")
+    small_lm = QwenConfig(hidden_size=1024, num_hidden_layers=2, num_attention_heads=16,
+                          num_key_value_heads=8, intermediate_size=3072, vocab_size=4096)
+    cpu_p = lm_serving.fuse_serving_params(lm_serving.ensure_quantized_head(
+        qwen.init_params(small_lm, device="cpu", seed=5, quant="q8_0")))
+    gpu_p = weights.tree_to(cpu_p, "cuda")
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, 4096, (1, 60)))
+    from acestep_tpu_torch.serving import kv_cache as kvc
+
+    def greedy(params, dev, mega, steps=40):
+        cache = kvc.init_cache(2, 1, 8, 256, 128, device=dev)
+        lg, cache = lm_serving.prefill(params, small_lm, ids.to(dev),
+                                       torch.tensor([60], dtype=torch.int32, device=dev), cache)
+        out = [lg.float().cpu()]
+        for _ in range(steps):
+            tok = out[-1].argmax(-1).to(dev)
+            lg, cache = lm_serving.decode_step(params, small_lm, cache, tok, decode_mega=mega)
+            cache.length = cache.length + 1
+            out.append(lg.float().cpu())
+        return out
+
+    before = snapshot_counts()[0][mega_name]
+    ref_lg = greedy(cpu_p, "cpu", "1")          # the megakernel's plain version
+    got_lg = greedy(gpu_p, "cuda", "auto")      # the megakernel
+    require(snapshot_counts()[0][mega_name] - before == 40,
+            "the small LM on the card skipped the kernel")
+    compared = 0
+    for step, (r, g) in enumerate(zip(ref_lg, got_lg)):
+        top2 = torch.topk(r[0], 2).values
+        gap = float(top2[0] - top2[1])
+        rel = float((g - r).abs().max() / r.abs().max())
+        if step <= 1:
+            log(f"  step {step}: card vs CPU logits max err / peak {rel:.3e} (< {MEGA_REL})")
+            require(rel < MEGA_REL, f"small LM logits at step {step} disagree")
+        if gap < MEGA_REL * float(r.abs().max()):
+            log(f"  step {step}: CPU top-1/top-2 gap {gap:.4g} below {MEGA_REL} x peak; "
+                "the greedy paths may part here")
+            break
+        require(int(g.argmax()) == int(r.argmax()), f"greedy token differs at step {step}")
+        compared += 1
+    log(f"small LM (1024 wide, 2 layers, q8_0) greedy on the card (megakernel) vs the CPU "
+        f"(plain versions): {compared} of {len(ref_lg)} tokens compared, all equal")
+    del cpu_p, gpu_p
+
     phase("timing")
     import torch.nn.functional as F
 
@@ -616,8 +1116,8 @@ def run() -> int:
     rows = []
     row_paths = ((names["q8_0"], "10s", qmm.KERNELS["q8_0"].source,
                   qmm.KERNELS["q8_0"].replaces),
-                 (unit, "10s", vru.SOURCE, vru.UNIT_REPLACES),
-                 (trio, "10s", vru.SOURCE, vru.TRIO_REPLACES))
+                 (unit, "10s", vru.SOURCE, vru.UNIT.replaces),
+                 (trio, "10s", vru.SOURCE, vru.TRIO.replaces))
     row_paths += tuple((names[fmt], f"60s {fmt}", qmm.KERNELS[fmt].source,
                         qmm.KERNELS[fmt].replaces) for fmt in FOUR_BIT)
     for name, path, source, replaces in row_paths:
@@ -630,6 +1130,78 @@ def run() -> int:
                      "library_ms": tot["lib"]})
     for name in (names["q8_0"], unit, trio):
         timed(name, "60s q4_0")
+
+    # LM rows: each launch of a request timed at three valid lengths of the
+    # codes phase (its first, middle and last step) and weighted by the
+    # request's launches; the bound sums every step's own length
+    l0 = len(ByteTokenizer().encode(lm_pipeline.build_formatted_prompt_with_cot(
+        LM_CAPTION, LM_LYRICS, lm_pipeline.metadata_to_cot({"bpm": 100}))))
+    steps = [l0 + i for i in range(lm_pipeline.code_bucket(LM_CODES + 2) - 1)]
+    probe = (steps[0], steps[len(steps) // 2], steps[-1])
+
+    def sdpa_lib(c, li, n):
+        kq, ks, vq, vs = c["cache"]
+        k = torch.cat([(kq[li, :, :, :n].float() * ks[li, :, :, :n, None]).bfloat16(),
+                       c["k"][:, :, None]], dim=2)
+        v = torch.cat([(vq[li, :, :, :n].float() * vs[li, :, :, :n, None]).bfloat16(),
+                       c["v"][:, :, None]], dim=2)
+        q = c["q"][:, :, None]
+        try:
+            F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+            return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        except TypeError:       # an older torch: expand the kv heads outside the timing
+            k2, v2 = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+            return lambda: F.scaled_dot_product_attention(q, k2, v2)
+
+    for name, mode, fused in ((attn_name, "pallas", False), (fused_name, "fused", True)):
+        n_launch = lm_runs[mode][1][name]
+        per = {"ms": [], "plain": [], "lib": []}
+        for n in probe:
+            c = attn_case(1, [n], 300)
+            fn = (decode_attn.decode_attention_fused_stacked if fused
+                  else decode_attn.decode_attention_int8_stacked)
+            plain = (decode_attn.decode_attention_fused_plain if fused
+                     else decode_attn.decode_attention_plain)
+            a = fused_args(c, 0) if fused else attn_args(c, 0)
+            per["ms"].append(cuda_ms(lambda: fn(*a), iters=50))
+            per["plain"].append(cuda_ms(lambda: plain(*a), iters=10))
+            per["lib"].append(cuda_ms(sdpa_lib(c, 0, n), iters=50))
+            log(f"  {name} B=1 T={LM_T} length {n}: kernel {per['ms'][-1]:.4f} ms, plain "
+                f"{per['plain'][-1]:.4f}, library (SDPA, dequantization excluded) "
+                f"{per['lib'][-1]:.4f}, bound {attn_bound(1, n, fused)[0]:.6f}")
+        per_step = n_launch / len(steps)          # one launch per layer per step
+        bound = sum(attn_bound(1, n, fused)[0] for n in steps) * per_step
+        by = attn_bound(1, steps[len(steps) // 2], fused)[1]
+        mean = {k: sum(v) / len(v) for k, v in per.items()}
+        rows.append({"name": name, "route": "cuda", "source": decode_attn.SOURCE,
+                     "replaces": (decode_attn.FUSED if fused else decode_attn.ATTN).replaces,
+                     "launches": n_launch, "max_abs_err": errs[name],
+                     "ms": mean["ms"] * n_launch, "plain_ms": mean["plain"] * n_launch,
+                     "bound_ms": bound, "bound_by": by, "library_ms": mean["lib"] * n_launch})
+        log(f"{name} per decode_attn={mode} request ({n_launch} launches): kernel "
+            f"{rows[-1]['ms']:.3f} ms, plain {rows[-1]['plain_ms']:.3f}, library "
+            f"{rows[-1]['library_ms']:.3f}, bound {bound:.3f}")
+    n_launch = lm_runs["default 2"][1][mega_name]
+    layers = pipe.params["layers"]
+    per = {"ms": [], "plain": []}
+    for n in probe:
+        args = mega_case(layers, 1, [n], 400)
+        per["ms"].append(cuda_ms(lambda: decode_mega.decode_layers_mega(layers, QWEN3_0_6B,
+                                                                        *args), iters=50))
+        per["plain"].append(cuda_ms(lambda: decode_mega.decode_layers_mega_plain(
+            layers, QWEN3_0_6B, *args), iters=3))
+        log(f"  {mega_name} B=1 T={LM_T} length {n}: kernel {per['ms'][-1]:.4f} ms, plain "
+            f"{per['plain'][-1]:.4f}, bound {mega_bound(QWEN3_0_6B, 1, [n])[0]:.4f}")
+    bound = sum(mega_bound(QWEN3_0_6B, 1, [n])[0] for n in steps) * n_launch / len(steps)
+    mean = {k: sum(v) / len(v) for k, v in per.items()}
+    rows.append({"name": mega_name, "route": "cuda", "source": decode_mega.MEGA.source,
+                 "replaces": decode_mega.MEGA.replaces, "launches": n_launch,
+                 "max_abs_err": errs[mega_name], "ms": mean["ms"] * n_launch,
+                 "plain_ms": mean["plain"] * n_launch, "bound_ms": bound,
+                 "bound_by": mega_bound(QWEN3_0_6B, 1, [steps[0]])[1], "library_ms": None})
+    log(f"{mega_name} per configs[2] LM request ({n_launch} launches): kernel "
+        f"{rows[-1]['ms']:.3f} ms, plain {rows[-1]['plain_ms']:.3f}, bound {bound:.3f} "
+        f"({rows[-1]['bound_by']}); no single library call computes a decode step")
     log("device memory of the full-width engines (GiB): "
         + json.dumps({k: round(v, 3) for k, v in memory.items()}))
     log("kernel times are per request: each served shape timed alone (CUDA events, "

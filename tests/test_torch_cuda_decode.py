@@ -1,0 +1,181 @@
+"""The LM decode kernels (csrc/decode_attn.cu rows 9 and 10, csrc/decode_mega.cu
+row 11) against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (CUDA kernels have no
+CPU mode).  The file imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_decode.py -q
+
+Tolerances (the JAX kernel tests'): decode attention 2e-2 absolute and
+relative; the fused kernel's new K/V int8 within 2 and scales to rtol 2e-2;
+the megakernel at the JAX test's depth of 2 layers: output rows within 2e-2 of
+their peak with the same argmax, int8 K/V within 2, scales to rtol 2e-2.  Both
+sides run the same arithmetic; what differs is the f32 summation order, which
+can move a bf16 rounding of the residual, and that drift grows with depth.
+So through 28 layers each test measures it (the plain version on the card
+against the same on the CPU) and holds the kernel to 1.5x that drift, never
+tighter than the JAX bounds; its first 2 layers keep the JAX bounds.
+"""
+
+import dataclasses
+import math
+
+import pytest
+import torch
+
+from acestep_tpu_torch import weights
+from acestep_tpu_torch.config import QWEN3_0_6B, QwenConfig
+from acestep_tpu_torch.models import qwen
+from acestep_tpu_torch.models.stacking import first_layers
+from acestep_tpu_torch.ops.cuda import decode_attn as tattn
+from acestep_tpu_torch.ops.cuda import decode_mega as tmega
+from acestep_tpu_torch.serving import kv_cache as tkvc
+from acestep_tpu_torch.serving import lm as tlm
+
+ATTN_TOL = 2e-2
+MEGA_REL = 2e-2
+INT8_MAX_DIFF = 2
+DRIFT_FACTOR = 1.5
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cache(g, n_l, b, hkv, t_max, dev):
+    k = torch.randn((n_l, b, hkv, t_max, 128), generator=g, device=dev)
+    v = torch.randn((n_l, b, hkv, t_max, 128), generator=g, device=dev)
+    kq, ks = tkvc.quantize_kv(k)
+    vq, vs = tkvc.quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def _to_cpu(args):
+    return [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+ATTN_CASES = [   # (b, hq, hkv, t_max, n_l, lengths)
+    (1, 8, 4, 256, 2, [1]), (1, 8, 4, 256, 2, [7]), (1, 8, 4, 256, 2, [200]),
+    (4, 8, 4, 256, 2, [1, 100, 128, 256]), (2, 16, 4, 512, 2, [300, 511]),
+    (1, 16, 8, 1408, 2, [1]), (4, 16, 8, 1408, 2, [1, 128, 700, 1408]),
+    (8, 16, 8, 1408, 2, [1, 128, 129, 640, 1000, 1300, 1407, 1408]),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"b{c[0]}-h{c[1]}-{c[2]}-t{c[3]}")
+def test_decode_attn_kernels_vs_plain(dev, case):
+    b, hq, hkv, t_max, n_l, lengths = case
+    g = torch.Generator(device=dev).manual_seed(sum(lengths))
+    kq, ks, vq, vs = _cache(g, n_l, b, hkv, t_max, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, 128), generator=g, device=dev).bfloat16()
+    k_self = torch.randn((b, hkv, 128), generator=g, device=dev).bfloat16()
+    v_self = torch.randn((b, hkv, 128), generator=g, device=dev).bfloat16()
+    qn = torch.randn(128, generator=g, device=dev)
+    kn = torch.randn(128, generator=g, device=dev)
+    cos, sin = (t[:, 0] for t in tlm._rope_at(lens, 128, 1e6))
+    for li in range(n_l):
+        args = (q, kq, ks, vq, vs, lens, li, k_self, v_self)
+        n0 = tattn.ATTN.launches
+        got = tattn.decode_attention_int8_stacked(*args)
+        assert tattn.ATTN.launches == n0 + 1
+        ref = tattn.decode_attention_plain(*args)
+        torch.testing.assert_close(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
+        # the plain version on the card agrees with it on the CPU
+        torch.testing.assert_close(ref.cpu(), tattn.decode_attention_plain(*_to_cpu(args)),
+                                   atol=1e-3, rtol=1e-3)
+        fargs = (q, k_self, v_self, qn, kn, cos, sin, kq, ks, vq, vs, lens, li)
+        got_f = tattn.decode_attention_fused_stacked(*fargs)
+        ref_f = tattn.decode_attention_fused_plain(*fargs)
+        torch.testing.assert_close(got_f[0], ref_f[0], atol=ATTN_TOL, rtol=ATTN_TOL)
+        for i in (1, 3):
+            assert int((got_f[i].int() - ref_f[i].int()).abs().max()) <= INT8_MAX_DIFF
+        for i in (2, 4):
+            torch.testing.assert_close(got_f[i], ref_f[i], rtol=2e-2, atol=1e-6)
+
+
+def _mega_case(cfg, b, t_max, seed, dev):
+    params = tlm.fuse_serving_params(qwen.init_params(cfg, device=dev, seed=seed,
+                                                      quant="q8_0"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kq, ks, vq, vs = _cache(g, cfg.num_hidden_layers, b, cfg.num_key_value_heads, t_max, dev)
+    lens = torch.randint(2, t_max, (b,), generator=g, device=dev, dtype=torch.int32)
+    lens[0] = 1
+    if b > 1:
+        lens[1] = 128
+    x0 = (torch.randn((b, cfg.hidden_size), generator=g, device=dev) * 0.02).bfloat16()
+    cos, sin = (t[:, 0] for t in tlm._rope_at(lens, 128, cfg.rope_theta))
+    return params["layers"], (kq, ks, vq, vs, lens, x0, cos, sin)
+
+
+def _drift_bounds(ref, cpu):
+    """(x max err / peak, int8, scales rtol): DRIFT_FACTOR x how far the plain
+    version on the card parts from the same on the CPU, at least the JAX bounds."""
+    ref = [a.cpu() for a in ref]
+    rel = float((ref[0] - cpu[0]).abs().max() / cpu[0].abs().max())
+    int8 = max(int((ref[i].int() - cpu[i].int()).abs().max()) for i in (1, 3))
+    scale = max(float(((ref[i] - cpu[i]).abs() - 1e-6).clamp(min=0).div(
+        cpu[i].abs().clamp(min=1e-30)).max()) for i in (2, 4))
+    return (max(MEGA_REL, DRIFT_FACTOR * rel),
+            max(INT8_MAX_DIFF, math.ceil(DRIFT_FACTOR * int8)), max(2e-2, DRIFT_FACTOR * scale))
+
+
+def _check_mega(got, ref, bounds=None):
+    deep = bounds is not None
+    rel, int8, scale = bounds if deep else (MEGA_REL, INT8_MAX_DIFF, 2e-2)
+    x_got, x_ref = got[0], ref[0]
+    assert float((x_got - x_ref).abs().max()) < rel * float(x_ref.abs().max())
+    if not deep:
+        assert torch.equal(x_got.argmax(-1), x_ref.argmax(-1))
+    for i in (1, 3):
+        assert int((got[i].int() - ref[i].int()).abs().max()) <= int8
+    for i in (2, 4):
+        torch.testing.assert_close(got[i], ref[i], rtol=scale, atol=1e-6)
+
+
+SMALL = QwenConfig(hidden_size=1024, num_hidden_layers=2, num_attention_heads=16,
+                   num_key_value_heads=8, intermediate_size=3072, vocab_size=2048)
+
+
+@pytest.mark.parametrize("cfg,b,t_max", [(SMALL, 1, 512), (SMALL, 4, 512),
+                                         (QWEN3_0_6B, 1, 1408), (QWEN3_0_6B, 8, 1408)],
+                         ids=["2L-b1", "2L-b4", "28L-b1", "28L-b8"])
+def test_decode_mega_vs_plain(dev, cfg, b, t_max):
+    layers, args = _mega_case(cfg, b, t_max, b, dev)
+    assert tmega.supported(layers, cfg, b, t_max)
+    n0 = tmega.MEGA.launches
+    got = tmega.decode_layers_mega(layers, cfg, *args)
+    torch.cuda.synchronize()
+    assert tmega.MEGA.launches == n0 + 1
+    deep = cfg.num_hidden_layers > 2
+    ref = tmega.decode_layers_mega_plain(layers, cfg, *args)
+    bounds = None
+    if deep:
+        cpu = tmega.decode_layers_mega_plain(weights.tree_to(layers, "cpu"), cfg,
+                                             *_to_cpu(args))
+        bounds = _drift_bounds(ref, cpu)
+    _check_mega(got, ref, bounds)
+    again = tmega.decode_layers_mega(layers, cfg, *args)
+    for a, c in zip(got, again):                      # no atomics: reruns are identical
+        assert torch.equal(a, c)
+    if deep:                                          # its first 2 layers at the JAX bounds
+        two = dataclasses.replace(cfg, num_hidden_layers=2)
+        lay2 = first_layers(layers, 2)
+        args2 = (*(a[:2] for a in args[:4]), *args[4:])
+        _check_mega(tmega.decode_layers_mega(lay2, two, *args2),
+                    tmega.decode_layers_mega_plain(lay2, two, *args2))
+
+
+def test_decode_mega_refused_launch_raises(dev):
+    layers, args = _mega_case(SMALL, 1, 512, 0, dev)
+    with pytest.raises(RuntimeError, match="acestep_decode_mega"):
+        tmega.decode_layers_mega(layers, SMALL, *args, grid=1 << 20)
+    torch.cuda.synchronize()
+    got = tmega.decode_layers_mega(layers, SMALL, *args)       # the next launch still runs
+    _check_mega(got, tmega.decode_layers_mega_plain(layers, SMALL, *args))

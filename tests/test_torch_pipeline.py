@@ -126,6 +126,13 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "acestep_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(REPO)) for p in files}
+    for module in ("chip_smoke.py", "acestep_tpu_torch/lm_pipeline.py",
+                   "acestep_tpu_torch/serving/lm.py", "acestep_tpu_torch/serving/kv_cache.py",
+                   "acestep_tpu_torch/ops/cuda/decode_attn.py",
+                   "acestep_tpu_torch/ops/cuda/decode_mega.py",
+                   "acestep_tpu_torch/models/random_init.py"):
+        assert module in names, module
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
