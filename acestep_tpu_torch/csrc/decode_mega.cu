@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -140,28 +142,6 @@ __device__ float block_max(float v, float* red) {
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
   return m;
-}
-
-// Grid-wide barrier (every block resident: cooperative launch).  Arrival
-// counter plus generation word; the last arrival resets the counter before it
-// bumps the generation, so the counter is 0 again for the next barrier and
-// after the launch.
-__device__ void grid_barrier(unsigned* sync) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = sync + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(sync, 1u) == gridDim.x - 1) {
-      atomicExch(sync, 0u);
-      __threadfence();
-      atomicAdd(sync + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Block 0 records the time at which a stage boundary was passed (the stage

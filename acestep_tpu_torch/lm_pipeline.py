@@ -248,14 +248,15 @@ class LMPipeline:
     The JAX package's environment knobs are keyword arguments with the same
     defaults: ``lm_head_quant`` (ACESTEP_TPU_LM_HEAD_QUANT), ``lm_fuse``
     (_LM_FUSE), ``kv_dtype`` (_KV_DTYPE), ``decode_mega`` (_DECODE_MEGA),
-    ``decode_attn`` (_DECODE_ATTN) and ``reduced_codes_head``
-    (_REDUCED_CODES_HEAD).  Quant scales are cast to f32 once whatever
+    ``decode_attn`` (_DECODE_ATTN), ``int8_act`` (_INT8_ACT) and
+    ``reduced_codes_head`` (_REDUCED_CODES_HEAD).  Quant scales are cast to f32 once whatever
     ``lm_fuse`` says: the CUDA matmul kernels read f32 scales."""
 
     def __init__(self, params: Dict[str, Any], cfg: QwenConfig, tokenizer: TokenizerLike,
                  *, device=None, lm_head_quant: Optional[str] = "q8_0", lm_fuse: bool = True,
                  kv_dtype: str = "int8", decode_mega: str = "auto",
-                 decode_attn: str = "auto", reduced_codes_head: bool = True):
+                 decode_attn: str = "auto", int8_act: bool = False,
+                 reduced_codes_head: bool = True):
         self.device = resolve_device(device)
         params = tree_to(params, self.device)
         if isinstance(params.get("layers"), list):
@@ -268,8 +269,8 @@ class LMPipeline:
         self.tok = tokenizer
         self.prefix_cache = lm_serving.PrefixCache(max_entries=8)
         self.kv_dtype = kvc.check_kv_dtype(kv_dtype)
-        lm_serving.check_knobs(decode_mega, decode_attn)
-        self.knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn,
+        lm_serving.check_knobs(decode_mega, decode_attn, int8_act)
+        self.knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
                           reduced_codes_head=reduced_codes_head)
 
     def _ids(self, rows) -> torch.Tensor:
@@ -323,14 +324,15 @@ class LMPipeline:
             bucket = _suffix_bucket(len(rest))
             logits, cache = lm_serving.extend_prefill(
                 self.params, self.cfg, cache, self._ids([rest + [0] * (bucket - len(rest))]),
-                self._i32([n0]), self._i32([len(rest)]))
+                self._i32([n0]), self._i32([len(rest)]), int8_act=self.knobs["int8_act"])
         else:
             prompt_ids = self._ids([self._bucket(ids)])
             total_len = kvc.round_len(max(total_len, prompt_ids.shape[1] + 1))
             cache = kvc.init_cache(self.cfg.num_hidden_layers, 1, self.cfg.num_key_value_heads,
                                    total_len, self.cfg.head_dim, self.kv_dtype, self.device)
             logits, cache = lm_serving.prefill(self.params, self.cfg, prompt_ids,
-                                               self._i32([len(ids)]), cache)
+                                               self._i32([len(ids)]), cache,
+                                               int8_act=self.knobs["int8_act"])
         if insert:
             self.prefix_cache.insert(ids, cache, logits)
         return cache, logits

@@ -1,6 +1,6 @@
 """ACE-Step DiT denoiser (flow-matching diffusion transformer) in PyTorch: port of
-the JAX package's models/dit.py for text2music (the timbre encoder and the
-opt-in whole-model megakernel are not ported yet).
+the JAX package's models/dit.py for text2music (the timbre encoder is not
+ported yet).
 
 Decoder layer: AdaLN from a 6-row ``scale_shift_table`` plus the timestep
 projection, GQA self-attention with NEOX RoPE (every other layer a bidirectional
@@ -12,6 +12,19 @@ request (:func:`compute_all_cross_kv`) and reused by every diffusion step.
 The decoder runs on stacked layers (:func:`stack_params`) with q||k||v and
 gate||up fused into one weight stream each (:func:`fuse_params`), as the JAX
 engine does; every linear may carry a quantized weight.
+
+Two opt-in switches of :func:`forward` stand for the JAX package's
+environment knobs (dit.py:583-607, qmm.py:348-367):
+  * ``dit_mega`` (``ACESTEP_TPU_DIT_MEGA=1``): at batch 1 with no
+    self-attention mask, every decoder layer of the step runs in one launch of
+    the Euler-step megakernel (ops/cuda/dit_mega.py) where its gate admits the
+    shapes; elsewhere the layer path runs, as in the JAX package;
+  * ``int8_act`` (``ACESTEP_TPU_INT8_ACT=1``): the q8_0 linears outside the
+    decoder layers with at most 16 rows (the six timestep-embedding linears at
+    batch 1, and proj_in / proj_out / the condition projection at such short
+    lengths) take the int8-activation kernel (ops/cuda/qmm_int8.py).  The
+    stacked decoder linears keep the q8_0 kernel, as the JAX package's
+    ``qmm_pallas_stacked_nd`` does.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import torch.nn.functional as F
 
 from acestep_tpu_torch.config import DiTConfig
 from acestep_tpu_torch.models.stacking import iter_layers, stack_layer_params
+from acestep_tpu_torch.ops.cuda import dit_mega as _dit_mega
 from acestep_tpu_torch.ops import (
     apply_rope,
     attention,
@@ -101,33 +115,44 @@ def _mlp(p: Params, x):
     return linear(_silu_as(gate, x.dtype) * up, p["down_proj"]["kernel"])
 
 
-def _timestep_embed(p: Params, t: torch.Tensor, dtype):
+def _timestep_embed(p: Params, t: torch.Tensor, dtype, int8_act: bool = False):
     """t [B] -> (temb [B, H], proj [B, 6, H])."""
     t_freq = sinusoidal_timestep_embedding(t, TIME_EMBED_IN).to(dtype)
-    temb = linear(t_freq, p["linear_1"]["kernel"], p["linear_1"]["bias"])
-    temb = linear(_silu_as(temb, dtype), p["linear_2"]["kernel"], p["linear_2"]["bias"])
-    proj = linear(_silu_as(temb, dtype), p["time_proj"]["kernel"], p["time_proj"]["bias"])
+    temb = linear(t_freq, p["linear_1"]["kernel"], p["linear_1"]["bias"], int8_act)
+    temb = linear(_silu_as(temb, dtype), p["linear_2"]["kernel"], p["linear_2"]["bias"],
+                  int8_act)
+    proj = linear(_silu_as(temb, dtype), p["time_proj"]["kernel"], p["time_proj"]["bias"],
+                  int8_act)
     return temb, proj.reshape(proj.shape[0], 6, -1)
 
 
 def compute_timestep_conditioning(params: Params, cfg: DiTConfig, timestep, timestep_r,
-                                  dtype=torch.bfloat16):
+                                  dtype=torch.bfloat16, int8_act: bool = False):
     """Dual timestep embedding: t and (t - r)."""
-    temb_t, proj_t = _timestep_embed(params["time_embed"], timestep, dtype)
-    temb_r, proj_r = _timestep_embed(params["time_embed_r"], timestep - timestep_r, dtype)
+    temb_t, proj_t = _timestep_embed(params["time_embed"], timestep, dtype, int8_act)
+    temb_r, proj_r = _timestep_embed(params["time_embed_r"], timestep - timestep_r, dtype,
+                                     int8_act)
     return temb_t + temb_r, proj_t + proj_r
 
 
-def compute_condition(params: Params, cfg: DiTConfig, encoder_hidden_states):
+def compute_condition(params: Params, cfg: DiTConfig, encoder_hidden_states,
+                      int8_act: bool = False):
     """Project the packed condition once (condition_embedder)."""
     p = params["condition_embedder"]
-    return linear(encoder_hidden_states, p["kernel"], p["bias"])
+    return linear(encoder_hidden_states, p["kernel"], p["bias"], int8_act)
 
 
 def compute_all_cross_kv(params: Params, cfg: DiTConfig, enc):
     """Per-layer cross-attention K/V for a step-constant condition: a list of
     (k, v) per layer."""
     return [cross_kv(p["cross_attn"], cfg, enc) for p in iter_layers(params["layers"])]
+
+
+def stack_cross_kv(kv_list) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-layer cross K/V as the megakernel reads them: (k, v) each
+    [L, B, Hkv, Lc, D] in bf16 (once per request)."""
+    return (torch.stack([k for k, _ in kv_list]).to(torch.bfloat16),
+            torch.stack([v for _, v in kv_list]).to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -179,16 +204,22 @@ def forward(
     cross_kv_cache: List[Tuple[torch.Tensor, torch.Tensor]],
     attn_mask: Optional[torch.Tensor] = None,          # [B, T] 1=valid
     encoder_attn_mask: Optional[torch.Tensor] = None,  # [B, Lc]
+    *,
+    dit_mega: bool = False,
+    int8_act: bool = False,
+    cross_kv_stacked: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Predict the velocity v_t [B, T, 64]; ``cross_kv_cache`` comes from
-    :func:`compute_all_cross_kv` on :func:`compute_condition`'s output."""
+    :func:`compute_all_cross_kv` on :func:`compute_condition`'s output, and
+    ``cross_kv_stacked`` (optional) from :func:`stack_cross_kv` on it.
+    ``dit_mega`` / ``int8_act``: the module docstring's switches."""
     b, t_len, _ = hidden_states.shape
     patch = cfg.patch_size
     dtype = hidden_states.dtype
     dev = hidden_states.device
 
     temb, timestep_proj = compute_timestep_conditioning(
-        params, cfg, timestep, timestep_r, dtype)
+        params, cfg, timestep, timestep_r, dtype, int8_act)
 
     x = torch.cat([context_latents.to(dtype), hidden_states], dim=-1)
     pad = (-t_len) % patch
@@ -196,10 +227,26 @@ def forward(
         x = F.pad(x, (0, 0, 0, pad))
     tp = (t_len + pad) // patch
     x = x.reshape(b, tp, patch * cfg.in_channels)
-    x = linear(x, params["proj_in"]["kernel"], params["proj_in"]["bias"])
+    x = linear(x, params["proj_in"]["kernel"], params["proj_in"]["bias"], int8_act)
 
     cos, sin = rope_cos_sin(torch.arange(tp, device=dev), cfg.head_dim, base=cfg.rope_theta)
     cos, sin = cos.to(dtype), sin.to(dtype)
+
+    layers = params["layers"]
+    lc = cross_kv_cache[0][0].shape[2] if dit_mega else 0
+    # the Euler-step megakernel (dit.py:583-607): batch 1, no self-attention
+    # mask, and the kernel's gate; anything else keeps the layer path below
+    if dit_mega and b == 1 and attn_mask is None and _dit_mega.supported(layers, cfg, b, tp, lc):
+        if encoder_attn_mask is not None:
+            encm = torch.where(encoder_attn_mask.bool(), 0.0, _dit_mega.NEG).float()
+        else:
+            encm = torch.zeros((1, lc), dtype=torch.float32, device=dev)
+        k_stack, v_stack = cross_kv_stacked or stack_cross_kv(cross_kv_cache)
+        flags = [lt == "sliding_attention" for lt in cfg.layer_types]
+        x = _dit_mega.dit_layers_mega(layers, cfg, x.float(), k_stack, v_stack,
+                                      timestep_proj.float(), cos.float(), sin.float(), flags,
+                                      encm).to(dtype)
+        return _finalize_output(params, cfg, x, temb, dtype, t_len, patch, int8_act)
 
     # patch-pooled self-attn validity (any valid frame in a patch -> valid patch)
     patch_valid = None
@@ -212,7 +259,7 @@ def forward(
                   if encoder_attn_mask is not None else None)
 
     mod_all = timestep_proj.float()
-    for li, p in enumerate(iter_layers(params["layers"])):
+    for li, p in enumerate(iter_layers(layers)):
         mod = p["scale_shift_table"].float()[None] + mod_all      # [B, 6, H]
         shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
             mod[:, j:j + 1, :].to(dtype) for j in range(6)]
@@ -230,17 +277,18 @@ def forward(
         normed = normed * (1.0 + c_scale) + c_shift
         x = x + _mlp(p["mlp"], normed) * c_gate
 
-    return _finalize_output(params, cfg, x, temb, dtype, t_len, patch)
+    return _finalize_output(params, cfg, x, temb, dtype, t_len, patch, int8_act)
 
 
-def _finalize_output(params, cfg: DiTConfig, x, temb, dtype, t_len: int, patch: int):
+def _finalize_output(params, cfg: DiTConfig, x, temb, dtype, t_len: int, patch: int,
+                     int8_act: bool = False):
     """Output AdaLN (2-row table) + unpatchify (convtranspose1d stride=patch)."""
     b, tp, _ = x.shape
     out_mod = params["out_scale_shift_table"].float()[None] + temb.float()[:, None, :]
     out_shift = out_mod[:, 0:1, :].to(dtype)
     out_scale = out_mod[:, 1:2, :].to(dtype)
     x = rms_norm(x, params["norm_out"], cfg.rms_norm_eps) * (1.0 + out_scale) + out_shift
-    y = linear(x, params["proj_out"]["kernel"])                # [B, Tp, patch*audio]
+    y = linear(x, params["proj_out"]["kernel"], int8_act=int8_act)   # [B, Tp, patch*audio]
     y = y.reshape(b, tp * patch, cfg.audio_acoustic_hidden_dim)
     y = y + params["proj_out"]["bias"].to(y.dtype)
     return y[:, :t_len, :]

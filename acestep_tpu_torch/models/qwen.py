@@ -63,17 +63,17 @@ def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask):
     return linear(out, p["o_proj"]["kernel"])
 
 
-def mlp_block(p: Params, x):
+def mlp_block(p: Params, x, int8_act: bool = False):
     """SwiGLU MLP, through the fused gate||up weight when present."""
     if "gateup_proj" in p:
-        gu = linear(x, p["gateup_proj"]["kernel"])
+        gu = linear(x, p["gateup_proj"]["kernel"], int8_act=int8_act)
         inter = gu.shape[-1] // 2
         gate, up = gu[..., :inter], gu[..., inter:]
     else:
-        gate = linear(x, p["gate_proj"]["kernel"])
-        up = linear(x, p["up_proj"]["kernel"])
+        gate = linear(x, p["gate_proj"]["kernel"], int8_act=int8_act)
+        up = linear(x, p["up_proj"]["kernel"], int8_act=int8_act)
     act = silu(gate.float()).to(x.dtype) * up
-    return linear(act, p["down_proj"]["kernel"])
+    return linear(act, p["down_proj"]["kernel"], int8_act=int8_act)
 
 
 def forward(params: Params, cfg: QwenConfig, token_ids: torch.Tensor,
@@ -99,13 +99,14 @@ def embeddings_only(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     return params["embed_tokens"][token_ids]
 
 
-def lm_logits(params: Params, cfg: QwenConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: QwenConfig, hidden: torch.Tensor,
+              int8_act: bool = False) -> torch.Tensor:
     """Final hidden states -> vocab logits.  A serving ``lm_head`` (quantized,
     vocab padded to a multiple of 2048) is sliced back to ``vocab_size``;
     without one the embeddings are tied: bf16 operands, f32 result."""
     head = params.get("lm_head")
     if head is not None:
-        logits = linear(hidden, head["kernel"])
+        logits = linear(hidden, head["kernel"], int8_act=int8_act)
         return logits[..., : cfg.vocab_size]
     emb = params["embed_tokens"]
     return torch.matmul(hidden.to(torch.bfloat16).float(),

@@ -73,6 +73,14 @@ SIGNATURES = {
     "acestep_decode_mega_scratch": [_I] * 6,
     # () -> blocks of the cooperative grid (< 0: the occupancy query failed)
     "acestep_decode_mega_grid": [],
+    # x, x_f32, w, scales, xq, xs, out, M, N, K, stream
+    "acestep_qmm_int8": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ptrs[36], dims[18], flags[8] (host arrays), eps, 1/sqrt(D), grid, stream
+    "acestep_dit_mega": [_P, _P, _P, _F, _F, _I, _P],
+    # (D, Lk, R, KT) -> shared-memory bytes of one block
+    "acestep_dit_mega_smem": [_I, _I, _I, _I],
+    # (shared-memory bytes) -> blocks of the cooperative grid
+    "acestep_dit_mega_grid": [_I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -15,6 +15,16 @@ kernel, so no per-layer weight copy is made either.  Every kernel streams the
 quantized fields as stored and dequantizes them in shared memory, so device
 memory never holds a bf16 copy of W.
 
+With ``int8_act`` (the JAX package's ``ACESTEP_TPU_INT8_ACT=1``), the n-D and
+stacked entry points send a q8_0 weight with a flattened M of at most 16 to
+
+  int8  csrc/qmm_int8.cu  replaces qmm.py:608 _int8_core_kernel (ops/cuda/qmm_int8.py)
+
+as ``qmm_pallas_nd`` does (qmm.py:348-367), unless N % 128 != 0, where the JAX
+``qmm_int8_act`` falls back to a bf16 dequant matmul: that is the q8_0 kernel
+here.  The int8 route returns bf16 and a bias is added after it in f32, with a
+second rounding, as the JAX ``linear`` does after its kernel.
+
 Numerics (the JAX package's, qmm.py:18-19): dequant in f32, one rounding to
 bf16, f32 accumulation; the bias is added in f32 before the one output rounding.
 
@@ -32,6 +42,7 @@ from typing import Optional
 import torch
 
 from acestep_tpu_torch.ops.cuda import _build
+from acestep_tpu_torch.ops.cuda import qmm_int8 as _int8
 from acestep_tpu_torch.quant import BLOCK, FOLD, SUB16, SUPER, QuantTensor, dequantize
 
 
@@ -126,11 +137,22 @@ def qmm(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
     return _launch(x, qt, bias, out_dtype)
 
 
+def _qmm_2d(x: torch.Tensor, qt: QuantTensor, bias, out_dtype, int8_act: bool):
+    if (int8_act and qt.fmt == "q8_0" and x.shape[0] <= _int8.MAX_M
+            and qt.shape[1] % _int8.N_ALIGN == 0):
+        y = _int8.qmm_int8_act(x, qt)
+        if bias is None:
+            return y.to(out_dtype)
+        return (y.float() + bias.float()).to(out_dtype)
+    return qmm(x, qt, bias, out_dtype)
+
+
 def qmm_nd(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
-           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``[..., K] @ qt [K, N] -> [..., N]``."""
+           out_dtype=torch.bfloat16, int8_act: bool = False) -> torch.Tensor:
+    """``[..., K] @ qt [K, N] -> [..., N]``; ``int8_act`` as the module
+    docstring says."""
     lead = x.shape[:-1]
-    y = qmm(x.reshape(-1, x.shape[-1]), qt, bias, out_dtype)
+    y = _qmm_2d(x.reshape(-1, x.shape[-1]), qt, bias, out_dtype, int8_act)
     return y.reshape(*lead, qt.shape[1])
 
 
@@ -144,8 +166,11 @@ def qmm_stacked(x: torch.Tensor, qt: QuantTensor, li: int,
 
 
 def qmm_stacked_nd(x: torch.Tensor, qt: QuantTensor, li: int,
-                   bias: Optional[torch.Tensor] = None,
-                   out_dtype=torch.bfloat16) -> torch.Tensor:
-    lead = x.shape[:-1]
-    y = qmm_stacked(x.reshape(-1, x.shape[-1]), qt, li, bias, out_dtype)
-    return y.reshape(*lead, qt.shape[1])
+                   bias: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16,
+                   int8_act: bool = False) -> torch.Tensor:
+    """``[..., K] @ dequant(qt[li])``: layer ``li`` of a stacked ``[L, K, N]``
+    weight, read in place (no per-layer copy); ``int8_act`` as in
+    :func:`qmm_nd`."""
+    if not qt.stacked:
+        raise ValueError("qmm_stacked_nd: weight has no layer axis")
+    return qmm_nd(x, qt.layer(li), bias, out_dtype, int8_act)

@@ -5,7 +5,8 @@ W is a plain tensor ``[K, N]``, a :class:`QuantTensor` (q8_0, q4_0, q4_k or
 q6_k), or a :class:`StackedWeight` (layer ``idx`` of a weight stacked
 ``[L, K, N]``, read in place).  Quantized weights go through the format's
 dequant-matmul (``ops.cuda.qmm``: the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors).
+version for CPU tensors).  ``int8_act`` sends q8_0 weights with at most 16
+rows to the int8-activation kernel (``ops.cuda.qmm.qmm_nd``).
 """
 
 from __future__ import annotations
@@ -34,15 +35,16 @@ class StackedWeight:
 Weight = Union[torch.Tensor, QuantTensor, StackedWeight]
 
 
-def linear(x: torch.Tensor, w: Weight, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: Weight, bias: Optional[torch.Tensor] = None,
+           int8_act: bool = False) -> torch.Tensor:
     """``x [..., K] @ w [K, N] -> [..., N]`` in x's dtype."""
     out_dtype = x.dtype
     if isinstance(w, StackedWeight):
         if isinstance(w.w, QuantTensor):
-            return _qmm.qmm_stacked_nd(x, w.w, w.idx, bias, out_dtype)
+            return _qmm.qmm_stacked_nd(x, w.w, w.idx, bias, out_dtype, int8_act)
         w = w.w[w.idx]
     if isinstance(w, QuantTensor):
-        return _qmm.qmm_nd(x, w, bias, out_dtype)
+        return _qmm.qmm_nd(x, w, bias, out_dtype, int8_act)
     y = torch.matmul(x.float(), w.to(x.dtype).float())
     if bias is not None:
         y = y + bias.float()

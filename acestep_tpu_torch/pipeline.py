@@ -12,6 +12,12 @@ Latent lengths are bucketed (frames rounded up to FRAME_BUCKET); validity is
 carried by the attention mask and trailing frames are sliced off before the
 decode.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for the card where there is none raises.
+
+``AceStepEngine(dit_mega=True)`` and ``(int8_act=True)`` stand for the JAX
+package's ``ACESTEP_TPU_DIT_MEGA=1`` and ``ACESTEP_TPU_INT8_ACT=1`` (see
+models/dit.py).  The megakernel runs only where no self-attention mask is
+needed, i.e. where the frames fill their bucket exactly: at full width
+10.24 s (256 frames, 128 patch tokens) is such a request.
 """
 
 from __future__ import annotations
@@ -139,8 +145,11 @@ class AceStepEngine:
     and tiled per request."""
 
     def __init__(self, dit_params, dit_cfg: DiTConfig, vae_params, vae_cfg: VAEConfig,
-                 text_params, text_cfg: QwenConfig, device=None):
+                 text_params, text_cfg: QwenConfig, device=None, *, dit_mega: bool = False,
+                 int8_act: bool = False):
         self.device = resolve_device(device)
+        self.dit_mega = dit_mega
+        self.int8_act = int8_act
         # stacked decoder layers, fused q||k||v and gate||up, f32 scales once
         self.dit_params = precast_quant_scales(dit.fuse_params(dit.stack_params(dit_params)))
         self.dit_cfg = dit_cfg
@@ -228,7 +237,8 @@ class AceStepEngine:
 
         t1 = time.perf_counter()
         latents = sampler.sample_latents(self.dit_params, self.dit_cfg, noise, ctx, enc,
-                                         enc_mask, schedule, attn_mask=attn_mask)
+                                         enc_mask, schedule, attn_mask=attn_mask,
+                                         dit_mega=self.dit_mega, int8_act=self.int8_act)
         self._sync()
         time_costs["diffusion_time_cost"] = time.perf_counter() - t1
         time_costs["diffusion_per_step_time_cost"] = (
@@ -261,13 +271,16 @@ class AceStepEngine:
 def build_random_engine(device=None, quant: Optional[str] = "q8_0", seed: int = 0,
                         dit_cfg: Optional[DiTConfig] = None,
                         vae_cfg: Optional[VAEConfig] = None,
-                        text_cfg: Optional[QwenConfig] = None) -> AceStepEngine:
+                        text_cfg: Optional[QwenConfig] = None, *, dit_mega: bool = False,
+                        int8_act: bool = False) -> AceStepEngine:
     """Random-weight engine (full width by default), initialised and quantized
     on ``device`` with a seeded torch.Generator there.  ``quant``: q8_0, q4_0,
-    q4_k, q6_k, or None for bf16 kernels."""
+    q4_k, q6_k, or None for bf16 kernels; ``dit_mega`` / ``int8_act`` as
+    :class:`AceStepEngine`."""
     dev = resolve_device(device)
     dit_cfg, vae_cfg, text_cfg = dit_cfg or DiTConfig(), vae_cfg or VAEConfig(), \
         text_cfg or QwenConfig()
     init = RandomInit(dev, seed, quant)
     return AceStepEngine(init.dit(dit_cfg), dit_cfg, init.vae(vae_cfg), vae_cfg,
-                         init.qwen(text_cfg), text_cfg, device=dev)
+                         init.qwen(text_cfg), text_cfg, device=dev, dit_mega=dit_mega,
+                         int8_act=int8_act)

@@ -59,25 +59,30 @@ def sample_latents(
     schedule: Tuple[float, ...],
     *,
     attn_mask: Optional[torch.Tensor] = None,
+    dit_mega: bool = False,
+    int8_act: bool = False,
 ) -> torch.Tensor:
     """Run the ODE Euler loop; returns clean latents x0 [B, T, 64] (f32).
 
     The condition is projected and its per-layer cross-attention K/V computed
-    once, then the DiT runs once per schedule step."""
+    once (and stacked once for the megakernel), then the DiT runs once per
+    schedule step.  ``dit_mega`` / ``int8_act``: ``dit.forward``'s switches."""
     b = noise.shape[0]
     dtype = torch.bfloat16
     dev = noise.device
     xt = noise.float()
-    enc = dit.compute_condition(params, cfg, encoder_hidden_states.to(dtype))
+    enc = dit.compute_condition(params, cfg, encoder_hidden_states.to(dtype), int8_act)
     kv = dit.compute_all_cross_kv(params, cfg, enc)
+    kv_stacked = dit.stack_cross_kv(kv) if dit_mega and b == 1 and attn_mask is None else None
     ts = torch.tensor(list(schedule) + [0.0], dtype=torch.float32, device=dev)
     n_steps = len(schedule)
     for i in range(n_steps):
         t, t_next = ts[i], ts[i + 1]
         t_b = t.expand(b)
         vt = dit.forward(params, cfg, xt.to(dtype), t_b, t_b, context_latents, kv,
-                         attn_mask=attn_mask,
-                         encoder_attn_mask=encoder_attn_mask).float()
+                         attn_mask=attn_mask, encoder_attn_mask=encoder_attn_mask,
+                         dit_mega=dit_mega, int8_act=int8_act,
+                         cross_kv_stacked=kv_stacked).float()
         if i == n_steps - 1:
             xt = xt - vt * t
         else:

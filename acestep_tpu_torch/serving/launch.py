@@ -28,12 +28,15 @@ def _load_cfg(checkpoint: str, name: str, cls):
 
 
 def build_engine(checkpoint: Optional[str] = None, quant: str = "q8_0",
-                 device=None) -> AceStepEngine:
+                 device=None, *, dit_mega: bool = False,
+                 int8_act: bool = False) -> AceStepEngine:
     """The engine of ``checkpoint`` on ``device`` (the card by default); without a
     checkpoint, a full-width random-weight engine quantized to ``quant``
-    (``"bf16"`` for none)."""
+    (``"bf16"`` for none).  ``dit_mega`` / ``int8_act`` as
+    :class:`AceStepEngine`."""
     if not checkpoint:
-        return build_random_engine(device=device, quant=None if quant == "bf16" else quant)
+        return build_random_engine(device=device, quant=None if quant == "bf16" else quant,
+                                   dit_mega=dit_mega, int8_act=int8_act)
     dev = resolve_device(device)
 
     def params(name):
@@ -42,4 +45,5 @@ def build_engine(checkpoint: Optional[str] = None, quant: str = "q8_0",
     return AceStepEngine(params("dit"), _load_cfg(checkpoint, "dit", DiTConfig),
                          params("vae"), _load_cfg(checkpoint, "vae", VAEConfig),
                          params("text_encoder"),
-                         _load_cfg(checkpoint, "text_encoder", QwenConfig), device=dev)
+                         _load_cfg(checkpoint, "text_encoder", QwenConfig), device=dev,
+                         dit_mega=dit_mega, int8_act=int8_act)

@@ -24,9 +24,12 @@ A decode step takes one of three forms (``decode_step``):
     prologue + attention kernel (``"fused"``, row 10);
   * the layer scan with the plain self-term attention
     (``attention_int8_self``; ``decode_attn="auto"`` or ``"xla"``).
+``int8_act`` sends every q8_0 linear with at most 16 rows (the decode layers'
+qkv, o_proj, gate-up and down on the layer scan, and the head on every form)
+through the int8-activation kernel (ops/cuda/qmm_int8.py, row 6).
 The JAX package reads these choices from ACESTEP_TPU_DECODE_MEGA / _DECODE_ATTN
-/ _REDUCED_CODES_HEAD / _KV_DTYPE / _LM_HEAD_QUANT; here they are keyword
-arguments with the same defaults.  Random draws come from an explicit
+/ _INT8_ACT / _REDUCED_CODES_HEAD / _KV_DTYPE / _LM_HEAD_QUANT; here they are
+keyword arguments with the same defaults.  Random draws come from an explicit
 torch.Generator on the logits' device (Gumbel-max sampling).
 
 Caches are mutable here: a decode step writes the new token's K/V into the
@@ -114,17 +117,17 @@ def attention_int8(q, kq, ks, vq, vs, bias):
     return out.reshape(b, hq, tq, d).to(dtype)
 
 
-def _qkv_proj(p, xn, b: int, t: int, nh: int, nkv: int, hd: int):
+def _qkv_proj(p, xn, b: int, t: int, nh: int, nkv: int, hd: int, int8_act: bool = False):
     """q / k / v projections, through the fused qkv weight when present."""
     if "qkv_proj" in p:
-        qkv = linear(xn, p["qkv_proj"]["kernel"])
+        qkv = linear(xn, p["qkv_proj"]["kernel"], int8_act=int8_act)
         q = qkv[..., : nh * hd]
         k = qkv[..., nh * hd: (nh + nkv) * hd]
         v = qkv[..., (nh + nkv) * hd:]
     else:
-        q = linear(xn, p["q_proj"]["kernel"])
-        k = linear(xn, p["k_proj"]["kernel"])
-        v = linear(xn, p["v_proj"]["kernel"])
+        q = linear(xn, p["q_proj"]["kernel"], int8_act=int8_act)
+        k = linear(xn, p["k_proj"]["kernel"], int8_act=int8_act)
+        v = linear(xn, p["v_proj"]["kernel"], int8_act=int8_act)
     return q.reshape(b, t, nh, hd), k.reshape(b, t, nkv, hd), v.reshape(b, t, nkv, hd)
 
 
@@ -166,7 +169,8 @@ def _write_prompt(cache: KVCache, li: int, t: int, kq, ks, vq, vs) -> None:
 
 @torch.no_grad()
 def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
-            lengths: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+            lengths: torch.Tensor, cache: KVCache, *, int8_act: bool = False
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Causal forward over the right-padded prompt [B, T]; writes positions
     [0, T) of ``cache`` (in place) and returns the logits [B, vocab] f32 at
     each sequence's last valid position."""
@@ -180,7 +184,7 @@ def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
     mask = make_attention_mask(t, t, kv_valid=valid, causal=True)
     for li, p in enumerate(iter_layers(params["layers"])):
         xn = rms_norm(x, p["input_norm"], eps)
-        q, k, v = _qkv_proj(p, xn, b, t, nh, nkv, hd)
+        q, k, v = _qkv_proj(p, xn, b, t, nh, nkv, hd, int8_act)
         q = rms_norm(q, p["q_norm"], eps).transpose(1, 2)
         k = rms_norm(k, p["k_norm"], eps).transpose(1, 2)
         v = v.transpose(1, 2)
@@ -189,20 +193,20 @@ def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
         vq, vs = kvc.quantize_kv(v, kv_dtype)
         _write_prompt(cache, li, t, kq, ks, vq, vs)
         attn = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, t, nh * hd)
-        x = x + linear(attn, p["o_proj"]["kernel"])
-        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps))
+        x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
+        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
     cache.length = lengths.to(torch.int32)
     x = rms_norm(x, params["norm"], eps)
     last = x[torch.arange(b, device=x.device), (lengths - 1).long()]
-    logits = qwen.lm_logits(params, cfg, last[:, None, :])[:, 0, :]
+    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act)[:, 0, :]
     return logits.float(), cache
 
 
 @torch.no_grad()
 def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                    new_ids: torch.Tensor, start: torch.Tensor,
-                   suffix_lengths: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, KVCache]:
+                   suffix_lengths: Optional[torch.Tensor] = None, *,
+                   int8_act: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Prefill a suffix [B, T2] (right-padded to a bucket; ``suffix_lengths``
     valid) at positions [start, start + len) of a copy of ``cache``; returns the
     logits at the last valid suffix position and the extended copy."""
@@ -227,7 +231,7 @@ def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
     wpos = pos[wb, wt]
     for li, p in enumerate(iter_layers(params["layers"])):
         xn = rms_norm(x, p["input_norm"], eps)
-        q, k, v = _qkv_proj(p, xn, b, t2, nh, nkv, hd)
+        q, k, v = _qkv_proj(p, xn, b, t2, nh, nkv, hd, int8_act)
         q = rms_norm(q, p["q_norm"], eps).transpose(1, 2)
         k = rms_norm(k, p["k_norm"], eps).transpose(1, 2)
         v = v.transpose(1, 2)
@@ -244,12 +248,12 @@ def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
         attn = attention_int8(q, cache.k[li], cache.k_scale[li], cache.v[li],
                               cache.v_scale[li], cache_bias)
         attn = attn.transpose(1, 2).reshape(b, t2, nh * hd)
-        x = x + linear(attn, p["o_proj"]["kernel"])
-        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps))
+        x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
+        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
     cache.length = (start + suffix_lengths).to(torch.int32)
     x = rms_norm(x, params["norm"], eps)
     last = x[torch.arange(b, device=dev), (suffix_lengths - 1).long()]
-    logits = qwen.lm_logits(params, cfg, last[:, None, :])[:, 0, :]
+    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act)[:, 0, :]
     return logits.float(), cache
 
 
@@ -257,11 +261,13 @@ def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
 # decode step
 # ---------------------------------------------------------------------------
 
-def check_knobs(decode_mega: str, decode_attn: str) -> None:
+def check_knobs(decode_mega: str, decode_attn: str, int8_act: bool = False) -> None:
     if decode_mega not in DECODE_MEGA:
         raise ValueError(f"decode_mega={decode_mega!r}: expected one of {DECODE_MEGA}")
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn={decode_attn!r}: expected one of {DECODE_ATTN}")
+    if not isinstance(int8_act, bool):
+        raise ValueError(f"int8_act={int8_act!r}: expected True or False")
 
 
 def _write_token(cache: KVCache, k_new, ks_new, v_new, vs_new) -> None:
@@ -286,12 +292,13 @@ def _use_mega(params, cfg, cache: KVCache, b: int, decode_mega: str, device) -> 
 @torch.no_grad()
 def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                 token_ids: torch.Tensor, head=None, *, decode_mega: str = "auto",
-                decode_attn: str = "auto") -> Tuple[torch.Tensor, KVCache]:
+                decode_attn: str = "auto", int8_act: bool = False
+                ) -> Tuple[torch.Tensor, KVCache]:
     """One decode position at each sequence's current length -> logits
     [B, vocab] f32.  The new token's K/V are written into ``cache`` (in place)
     at ``length``; the caller advances the lengths.  ``head`` overrides the
     vocab projection (the reduced codes head)."""
-    check_knobs(decode_mega, decode_attn)
+    check_knobs(decode_mega, decode_attn, int8_act)
     b = token_ids.shape[0]
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     eps, kv_dtype, t_max = cfg.rms_norm_eps, cache.kv_dtype, cache.max_len
@@ -318,7 +325,7 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
         for li in range(num_layers(layers)):
             p = layer_view(layers, li)
             xn = rms_norm(x, p["input_norm"], eps)
-            q, k, v = _qkv_proj(p, xn, b, 1, nh, nkv, hd)
+            q, k, v = _qkv_proj(p, xn, b, 1, nh, nkv, hd, int8_act)
             if fused:
                 out, kq_new, ks_new, vq_new, vs_new = _dattn.decode_attention_fused_stacked(
                     q[:, 0], k[:, 0], v[:, 0], p["q_norm"], p["k_norm"], cos[:, 0],
@@ -343,8 +350,8 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                                                cache.v[li], cache.v_scale[li], bias_strict,
                                                k_self, v_self)
                     attn = attn.transpose(1, 2).reshape(b, 1, nh * hd)
-            x = x + linear(attn, p["o_proj"]["kernel"])
-            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps))
+            x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
+            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
             news.append((kq_new, ks_new, vq_new, vs_new))
         _write_token(cache, *(torch.stack([n[i] for n in news]) for i in range(4)))
     else:
@@ -356,7 +363,7 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
         pos = cache.length.long()
         for li, p in enumerate(layers):
             xn = rms_norm(x, p["input_norm"], eps)
-            q, k, v = _qkv_proj(p, xn, b, 1, nh, nkv, hd)
+            q, k, v = _qkv_proj(p, xn, b, 1, nh, nkv, hd, int8_act)
             q = rms_norm(q, p["q_norm"], eps).transpose(1, 2)
             k = rms_norm(k, p["k_norm"], eps).transpose(1, 2)
             v = v.transpose(1, 2)
@@ -369,14 +376,15 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
             cache.v_scale[li][bidx, :, pos] = vs_new
             attn = attention_int8(q, cache.k[li], cache.k_scale[li], cache.v[li],
                                   cache.v_scale[li], bias)
-            x = x + linear(attn.transpose(1, 2).reshape(b, 1, nh * hd), p["o_proj"]["kernel"])
-            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps))
+            x = x + linear(attn.transpose(1, 2).reshape(b, 1, nh * hd), p["o_proj"]["kernel"],
+                           int8_act=int8_act)
+            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
 
     x = rms_norm(x, params["norm"], eps)
     if head is not None:
-        logits = linear(x, head)[:, 0, :]
+        logits = linear(x, head, int8_act=int8_act)[:, 0, :]
     else:
-        logits = qwen.lm_logits(params, cfg, x)[:, 0, :]
+        logits = qwen.lm_logits(params, cfg, x, int8_act)[:, 0, :]
     return logits.float(), cache
 
 
@@ -499,13 +507,13 @@ class SamplingParams:
 def _scan_decode(params, cfg, sp: SamplingParams, b: int, cache: KVCache, logits, gen,
                  ucache: Optional[KVCache] = None, ulogits=None, min_tokens_arr=None,
                  forced_eos_arr=None, *, reduced_codes_head: bool = True,
-                 decode_mega: str = "auto", decode_attn: str = "auto"):
+                 decode_mega: str = "auto", decode_attn: str = "auto", int8_act: bool = False):
     """Sample from ``logits`` then run ``max_new_tokens - 1`` cached decode
     steps (every step, as the JAX scan; finished rows are frozen).
     ``min_tokens_arr`` / ``forced_eos_arr`` [B] are per-row overrides of
     ``sp.min_tokens`` / ``sp.forced_eos_at``.  Returns (tokens [B, max_new]
     int32 with -1 after a row's stop, n_generated [B]) on the device."""
-    check_knobs(decode_mega, decode_attn)
+    check_knobs(decode_mega, decode_attn, int8_act)
     dev = logits.device
     use_cfg = sp.cfg_scale != 1.0 and ucache is not None
     if use_cfg:
@@ -580,7 +588,7 @@ def _scan_decode(params, cfg, sp: SamplingParams, b: int, cache: KVCache, logits
             s = s | (tok == sp.eos_token)
         return s
 
-    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn)
+    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
     cur = sample_logits(gen, constrain(logits, 0), sp.temperature, sp.top_k, sp.top_p)
     first_tok = cur
     finished = is_stop(cur)
@@ -621,7 +629,8 @@ def generate(params: Dict[str, Any], cfg: QwenConfig, prompt_ids: torch.Tensor,
              uncond_prompt_lengths: Optional[torch.Tensor] = None,
              min_tokens_arr=None, forced_eos_arr=None, *, kv_dtype: str = "int8",
              reduced_codes_head: bool = True, decode_mega: str = "auto",
-             decode_attn: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+             decode_attn: str = "auto", int8_act: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate up to ``max_new_tokens`` per prompt row [B, T] (right-padded);
     returns (tokens [B, max_new], n_generated [B]) on the prompt's device."""
     b, t_prompt = prompt_ids.shape
@@ -630,17 +639,17 @@ def generate(params: Dict[str, Any], cfg: QwenConfig, prompt_ids: torch.Tensor,
     max_len = kvc.round_len(t_prompt + sp.max_new_tokens + 1)
     cache = kvc.init_cache(n_layers, b, cfg.num_key_value_heads, max_len, cfg.head_dim,
                            kv_dtype, dev)
-    logits, cache = prefill(params, cfg, prompt_ids, prompt_lengths, cache)
+    logits, cache = prefill(params, cfg, prompt_ids, prompt_lengths, cache, int8_act=int8_act)
     ucache = ulogits = None
     if sp.cfg_scale != 1.0 and uncond_prompt_ids is not None:
         u_max = kvc.round_len(uncond_prompt_ids.shape[1] + sp.max_new_tokens + 1)
         ucache = kvc.init_cache(n_layers, b, cfg.num_key_value_heads, u_max, cfg.head_dim,
                                 kv_dtype, dev)
         ulogits, ucache = prefill(params, cfg, uncond_prompt_ids, uncond_prompt_lengths,
-                                  ucache)
+                                  ucache, int8_act=int8_act)
     return _scan_decode(params, cfg, sp, b, cache, logits, gen, ucache, ulogits,
                         min_tokens_arr, forced_eos_arr, reduced_codes_head=reduced_codes_head,
-                        decode_mega=decode_mega, decode_attn=decode_attn)
+                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
 
 
 @torch.no_grad()
@@ -648,14 +657,15 @@ def decode_from_state(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache, l
                       gen: Optional[torch.Generator], sp: SamplingParams,
                       ucache: Optional[KVCache] = None, ulogits=None, min_tokens_arr=None,
                       forced_eos_arr=None, *, reduced_codes_head: bool = True,
-                      decode_mega: str = "auto", decode_attn: str = "auto"):
+                      decode_mega: str = "auto", decode_attn: str = "auto",
+                      int8_act: bool = False):
     """The decode loop from an existing prefilled state (the prefix-cache
     path); runs on copies of the caches."""
     b = logits.shape[0]
     return _scan_decode(params, cfg, sp, b, cache.clone(), logits, gen,
                         None if ucache is None else ucache.clone(), ulogits, min_tokens_arr,
                         forced_eos_arr, reduced_codes_head=reduced_codes_head,
-                        decode_mega=decode_mega, decode_attn=decode_attn)
+                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
 
 
 # ---------------------------------------------------------------------------

@@ -12,32 +12,48 @@ Phases, each announced by a timestamped line:
                 JAX package's kernel-test bound (test_qmm_pallas.py), max error
                 below 2% of the mean |output| on the f32 outputs and >= 98% of
                 the bf16 outputs equal, each within one bf16 step (2^-7).  VAE
-                res unit / trio: 1e-4 in f32
-  4. engine     the full-width random q8_0 engine, built on the card
-  5. serve      configs[0]: 10 s text2music, 64 style + 256 lyric tokens, one
+                res unit / trio: 1e-4 in f32.  int8-activation q8_0 matmul
+                (row 6): bit-identical at the LM's shapes (M 1, 4, 8, 16) and
+                the DiT timestep shapes (M 1); N % 128 != 0 takes the q8_0 kernel
+  4. check_dit  the DiT Euler-step megakernel (row 12) at full width (T 128,
+                Lc 320), with and without padded condition tokens, through 2
+                and 24 random q8_0 layers, plus a 2-layer case whose sliding
+                window (16) masks: each depth held to 1.5x the drift measured
+                in this run between its plain version on the card and on the
+                CPU (max abs error over the peak, never tighter than 5e-3),
+                reruns bit-identical; two planted faults in the plain version
+                ("sliding band not applied", "gate_msa dropped"), each rejected
+  5. engine     the full-width random q8_0 engine, built on the card
+  6. serve      configs[0]: 10 s text2music, 64 style + 256 lyric tokens, one
                 seed, through AceStepEngine.generate three times (one warm-up,
-                two timed); every kernel of the path launched in each request
-  6. output     audio_lengths == [480000], int16 [1, >=480000, 2], non-constant,
+                two timed); every kernel of the path launched in each request.
+                Then request A: the same at 10.24 s (256 frames fill their
+                bucket, no self-attention mask) through a second engine around
+                the same weights with dit_mega and int8_act on, three times:
+                each launches the megakernel 8 times and row 6 48 times; and
+                twice with both switches off, beside it (latent cosine printed)
+  7. output     audio_lengths == [480000], int16 [1, >=480000, 2], non-constant,
                 finite positive scale; a small engine on the card (kernels)
                 against the same engine on the CPU (plain versions): the Q8_0
-                gate, cosine >= 0.999 and SNR >= 26 dB
-  7. engine60   the full-width random q4_0 engine (the q8_0 engine freed first)
-  8. serve60    configs[1]: the same request at 60 s, three times at q4_0
+                gate, cosine >= 0.999 and SNR >= 26 dB; the same for a small
+                engine that meets the megakernel's gate, with both switches on
+  8. engine60   the full-width random q4_0 engine (the q8_0 engine freed first)
+  9. serve60    configs[1]: the same request at 60 s, three times at q4_0
                 (q4_0_qmm, q8_0_qmm, vae_res_unit and vae_res_trio launched in
                 each), then once as warm-up and once timed at q4_k and at q6_k,
                 one full-width engine at a time, each with its own kernel
                 launched
-  9. output60   audio_lengths == [2880000], int16 [1, >=2880000, 2],
+ 10. output60   audio_lengths == [2880000], int16 [1, >=2880000, 2],
                 non-constant, finite positive scale; a small q4_0, q4_k and q6_k
                 engine each on the card against the same engine on the CPU, at
                 the Q8_0 gate
- 10. checkpoint a small q4_k engine written with the port's save_params to a
+ 11. checkpoint a small q4_k engine written with the port's save_params to a
                 temporary directory, read back through
                 serving.launch.build_engine(dir) on the card: the same int16
                 output, exactly
- 11. recheck    every (kernel, shape) the served requests launched that phase 3
+ 12. recheck    every (kernel, shape) the served requests launched that phase 3
                 did not cover, against the plain version
- 12. check_lm   the LM decode kernels against their plain versions at the
+ 13. check_lm   the LM decode kernels against their plain versions at the
                 0.6B planner's full width (16 query / 8 kv heads, 28 layers of
                 int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
                 ragged: decode_attn and decode_attn_fused 2e-2 (the fused new
@@ -48,24 +64,29 @@ Phases, each announced by a timestamped line:
                 test's 2e-2, 2, 2e-2; the shares of x and of the new K/V that
                 differ), argmax equal, reruns bit-identical; then four planted
                 faults in the plain version, each of which one depth rejects
- 13. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
+ 14. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
                 quantized head, int8 KV), drawn on the card
- 14. lm_serve   configs[2]'s LM request through
+ 15. lm_serve   configs[2]'s LM request through
                 LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
                 100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
                 0.95): three times on the default path (megakernel), once with
                 decode_mega=0 decode_attn=pallas, once with fused, and once
-                with thinking (free CoT), cfg 2.0 and batch 4; time_costs and
-                launches of every request
- 15. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 11
- 16. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
-                same LM on the CPU (plain versions): logits within 2e-2 of the
-                peak, tokens equal up to the first step whose CPU top-1/top-2
-                gap is below 2e-2 of the peak
- 17. timing     kernel, plain-version and library-call times at the served
+                with thinking (free CoT), cfg 2.0 and batch 4; then request B,
+                int8_act on, once on the default path (the head through row 6)
+                and once with decode_mega=0 (every layer linear too);
+                time_costs and launches of every request
+ 16. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 11
+ 17. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
+                same LM on the CPU (plain versions), both fed the CPU's tokens:
+                logits of the first two steps within 2e-2 of the peak (4e-2
+                with int8 activations), the top token equal at every step whose
+                CPU top-1/top-2 gap is at least 2e-2 of the peak; on the
+                megakernel, and with int8_act on the layer scan
+ 18. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
-                over 989 TFLOP/s bf16 / 67 TFLOP/s f32); the LM kernels at
-                three valid lengths of the request, weighted by its launches
+                over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32); the
+                LM kernels at three valid lengths of the request, weighted by
+                its launches; the DiT megakernel beside the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -100,6 +121,11 @@ LM_CODES = 600                 # 120 s at 5 codes/s (code bucket 768)
 LM_T = 1408                    # cache length of that request (round_len(512 + 768 + 1))
 ATTN_TOL = 2e-2                # test_decode_attn_pallas.py:52
 MEGA_REL = 2e-2                # test_decode_mega.py:64-70: logits / rows
+# int8 activations amplify the surrounding ops' rounding differences: one bf16
+# step of an activation can move its int8 value a whole step of amax / 127
+# (tests/test_torch_qmm_int8.py); the LM logits with int8_act are held to twice
+# the JAX decode bound
+INT8_LOGIT_REL = 4e-2
 INT8_MAX_DIFF = 2              # test_decode_mega.py:70: cache int8
 SCALE_RTOL = 2e-2              # test_decode_mega.py: new K/V scales
 # The megakernel: two correct orders of the same f32 sums part by a bf16 step
@@ -113,6 +139,12 @@ DRIFT_FACTOR = 1.5
 # (decode_mega.py:208-354), run beside it to show what each bound can see
 MEGA_FAULTS = ("qkv rounded to bf16", "probabilities against the chunk max",
                "residual kept in f32", "self term dropped")
+INT8_OPS = 1979e12
+# request A: the DiT megakernel's path (frames fill the 256-frame bucket)
+DIT_A_S = 10.24
+DIT_T, DIT_LC = 128, 320       # patch tokens; packed condition (64 + 256 token buckets)
+DIT_REL_MIN = 5e-3             # test_dit_mega.py:93 (atol 5e-3 at outputs of order 1)
+DIT_FAULTS = ("sliding band not applied", "gate_msa dropped")
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -332,11 +364,11 @@ def shapes_by_kernel(fmt, shapes):
 
 def counted_kernels():
     """Every kernel's launch counter (``_build.Counted``)."""
-    from acestep_tpu_torch.ops.cuda import decode_attn, decode_mega, qmm
+    from acestep_tpu_torch.ops.cuda import decode_attn, decode_mega, dit_mega, qmm, qmm_int8
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
-    return [*qmm.KERNELS.values(), vru.UNIT, vru.TRIO, decode_attn.ATTN, decode_attn.FUSED,
-            decode_mega.MEGA]
+    return [*qmm.KERNELS.values(), qmm_int8.INT8, vru.UNIT, vru.TRIO, decode_attn.ATTN,
+            decode_attn.FUSED, decode_mega.MEGA, dit_mega.MEGA]
 
 
 def reset_counts() -> None:
@@ -350,10 +382,11 @@ def snapshot_counts():
     return {k.name: k.launches for k in kernels}, {k.name: dict(k.shapes) for k in kernels}
 
 
-def serve(engine, req, label, n_requests, need):
+def serve(engine, req, label, n_requests, need, exact=None):
     """``n_requests`` of ``req`` (the first a warm-up), the counts reset just
     before each and read just after; every kernel named in ``need`` must launch
-    in each.  Returns the results and the last request's (launches, shapes)."""
+    in each, each named in ``exact`` exactly that many times.  Returns the
+    results and the last request's (launches, shapes)."""
     results, counts = [], None
     for i in range(n_requests):
         reset_counts()
@@ -368,6 +401,9 @@ def serve(engine, req, label, n_requests, need):
         require(all(counts[0][name] > 0 for name in need),
                 f"{label} request {i}: a kernel of the path was not launched "
                 f"(need {need})")
+        for name, n in (exact or {}).items():
+            require(counts[0][name] == n, f"{label} request {i}: {name} launched "
+                    f"{counts[0][name]} times, {n} expected")
     return results, counts
 
 
@@ -392,6 +428,187 @@ def free_engine() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# rows 6 and 12 helpers
+# ---------------------------------------------------------------------------
+
+def check_int8(shape, seed) -> float:
+    """Row 6 against its plain version on one shape (M, K, N): bit-identical
+    bf16 outputs, a zero row and half-way ties included."""
+    import torch
+    from acestep_tpu_torch.ops.cuda import qmm_int8
+
+    case = QmmCase("q8_0", *shape, seed)
+    x = case.x.clone()
+    x[0, :4] = torch.tensor([127.0, 0.5, -1.5, 2.5], device="cuda")
+    if shape[0] > 2:
+        x[2] = 0.0
+    got = qmm_int8._launch(x, case.qt)
+    ref = qmm_int8.qmm_int8_act_plain(x, case.qt)
+    require(bool(torch.isfinite(got.float()).all()), f"row 6 {shape}: non-finite output")
+    same = bool(torch.equal(got, ref))
+    log(f"  {qmm_int8.INT8.name} M={shape[0]} K={shape[1]} N={shape[2]}: bit-identical "
+        f"{same}, max_abs_err {max_err(got, ref):.3e}")
+    require(same, f"row 6 {shape}: kernel differs from its plain version")
+    return max_err(got, ref)
+
+
+def int8_bound(m, k, n):
+    """Least time of one row 6 launch: x, the weight as stored (int8 and an f16
+    scale a 32-block) and the bf16 output once each; 2 M K N int8 operations."""
+    return bound_ms(m * k * 2 + k * n * (1 + 2 / 32) + m * n * 2, 2.0 * m * k * n, INT8_OPS)
+
+
+def dit_mega_case(cfg, n_layers, t, lc, seed, padded=False):
+    """Random DiT decoder layers on the card (q8_0, fused, f32 scales; norms
+    and the modulation table drawn, not constant) and one Euler step's inputs."""
+    import torch
+    from acestep_tpu_torch.models import dit
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.ops.qlinear import precast_quant_scales
+
+    init = RandomInit(torch.device("cuda"), seed, "q8_0")
+    h, d = cfg.hidden_size, cfg.head_dim
+
+    def around_one(*shape):
+        return (1.0 + 0.1 * init.normal(shape, 1.0)).bfloat16()
+
+    sa, ca = init.attn(cfg, n_layers), init.attn(cfg, n_layers)
+    for a in (sa, ca):
+        a["q_norm"], a["k_norm"] = around_one(n_layers, d), around_one(n_layers, d)
+    layers = {"self_attn_norm": around_one(n_layers, h), "self_attn": sa,
+              "cross_attn_norm": around_one(n_layers, h), "cross_attn": ca,
+              "mlp_norm": around_one(n_layers, h),
+              "mlp": init.mlp(h, cfg.intermediate_size, n_layers),
+              "scale_shift_table": (0.1 * init.normal((n_layers, 6, h), 1.0)).bfloat16()}
+    layers = precast_quant_scales(dit.fuse_params({"layers": layers})["layers"])
+    return layers, dit_mega_inputs(init, cfg, n_layers, t, lc, padded)
+
+
+def dit_mega_inputs(init, cfg, n_layers, t, lc, padded=False):
+    import torch
+    from acestep_tpu_torch.ops import rope_cos_sin
+    from acestep_tpu_torch.ops.cuda import dit_mega
+
+    h, d, hkv = cfg.hidden_size, cfg.head_dim, cfg.num_key_value_heads
+    x = init.normal((1, t, h), 1.0)
+    kst, vst = (init.normal((n_layers, 1, hkv, lc, d), 1.0).bfloat16() for _ in range(2))
+    tproj = init.normal((1, 6, h), 0.3)
+    cos, sin = (a.bfloat16().float() for a in rope_cos_sin(
+        torch.arange(t, device="cuda"), d, base=cfg.rope_theta))
+    encm = torch.zeros((1, lc), device="cuda")
+    if padded:
+        encm[:, lc - lc // 5:] = dit_mega.NEG
+    flags = [lt == "sliding_attention" for lt in cfg.layer_types[:n_layers]]
+    return x, kst, vst, tproj, cos, sin, flags, encm
+
+
+def dit_rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def dit_fault_args(fault, layers, args):
+    """The plain version's inputs with the rule ``fault`` (one of DIT_FAULTS)
+    broken: the band off on every layer, or gate_msa (mod[2] = sst[2] +
+    tproj[2]) set to 1 by an f32 table that cancels tproj."""
+    x, kst, vst, tproj, cos, sin, flags, encm = args
+    if fault == "sliding band not applied":
+        return layers, (x, kst, vst, tproj, cos, sin, [False] * len(flags), encm)
+    sst = layers["scale_shift_table"].float().clone()
+    sst[:, 2, :] = 1.0 - tproj.reshape(6, -1)[2]
+    return dict(layers, scale_shift_table=sst), args
+
+
+def check_dit_mega(full_cfg) -> float:
+    """Row 12 against its plain version at full width (T 128, Lc 320) through
+    the first 2 and all 24 layers, with and without padded condition tokens,
+    and a 2-layer case whose sliding window (16) masks, at DRIFT_FACTOR x the
+    drift of the plain version (card against CPU) at that depth, never tighter
+    than DIT_REL_MIN; reruns bit-identical; each planted fault rejected.
+    Returns the max abs error."""
+    import torch
+    from acestep_tpu_torch import weights
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.models.stacking import first_layers
+    from acestep_tpu_torch.ops.cuda import dit_mega
+
+    name = dit_mega.MEGA.name
+    n_full = full_cfg.num_hidden_layers
+    t = time.perf_counter()
+    layers24, _ = dit_mega_case(full_cfg, n_full, DIT_T, DIT_LC, 81)
+    band_cfg = dataclasses.replace(full_cfg, sliding_window=16, num_hidden_layers=2,
+                                   layer_types=full_cfg.layer_types[:2])
+    layers_band, band_args = dit_mega_case(band_cfg, 2, DIT_T, DIT_LC, 82, padded=True)
+    log(f"  {n_full}-layer and 2-layer random q8_0 decoders drawn in "
+        f"{time.perf_counter() - t:.1f} s")
+    init = RandomInit(torch.device("cuda"), 83, "q8_0")
+    cases = []                  # (depth key, label, cfg, layers, args)
+    for n_l in (2, n_full):
+        cfg_d = dataclasses.replace(full_cfg, num_hidden_layers=n_l,
+                                    layer_types=full_cfg.layer_types[:n_l])
+        lay = first_layers(layers24, n_l)
+        for padded in (False, True):
+            cases.append((n_l, f"{name} {n_l} layers T={DIT_T} Lc={DIT_LC}"
+                          f"{' padded' if padded else ''}", cfg_d, lay,
+                          dit_mega_inputs(init, cfg_d, n_l, DIT_T, DIT_LC, padded)))
+    cases.append((2, f"{name} 2 layers T={DIT_T} Lc={DIT_LC} padded, window 16",
+                   band_cfg, layers_band, band_args))
+    err, runs, t_cpu = 0.0, [], 0.0
+    for depth, label, cfg_d, lay, args in cases:
+        require(dit_mega.supported(lay, cfg_d, 1, DIT_T, DIT_LC), f"{label}: gate declines")
+        got = dit_mega.dit_layers_mega(lay, cfg_d, *args)
+        again = dit_mega.dit_layers_mega(lay, cfg_d, *args)
+        require(bool(torch.equal(got, again)), f"{label}: two launches on the same inputs differ")
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        ref = dit_mega.dit_layers_mega_plain(lay, cfg_d, *args)
+        t = time.perf_counter()
+        cpu = dit_mega.dit_layers_mega_plain(
+            weights.tree_to(lay, "cpu"), cfg_d,
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        t_cpu += time.perf_counter() - t
+        drift = dit_rel(ref.cpu(), cpu)
+        err = max(err, max_err(got, ref))
+        runs.append((depth, label, cfg_d, lay, args, got, ref, drift))
+        log(f"  {label}: plain on the card vs on the CPU: max err / peak {drift:.3e}")
+    log(f"  (the plain version on the CPU took {t_cpu:.1f} s)")
+    bounds = {d: max(DIT_REL_MIN, DRIFT_FACTOR * max(r[7] for r in runs if r[0] == d))
+              for d in {r[0] for r in runs}}
+    for depth, label, *_, got, ref, _ in runs:
+        rel = dit_rel(got, ref)
+        ok = rel < bounds[depth]
+        log(f"  {label}: kernel vs plain max err / peak {rel:.3e} (< {bounds[depth]:.3e}) "
+            f"max_abs_err {max_err(got, ref):.3e} {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label}: megakernel disagrees with its plain version")
+    passed = []
+    for fault in DIT_FAULTS:
+        seen = []
+        for depth, label, cfg_d, lay, args, got, ref, _ in runs:
+            f_lay, f_args = dit_fault_args(fault, lay, args)
+            rel = dit_rel(dit_mega.dit_layers_mega_plain(f_lay, cfg_d, *f_args), ref)
+            seen.append(rel >= bounds[depth])
+            log(f"  planted fault '{fault}', {label}: max err / peak {rel:.3e} -> "
+                f"{'rejected' if seen[-1] else 'passes'}")
+        if not any(seen):
+            passed.append(fault)
+    require(not passed, f"planted faults {passed} pass every megakernel check")
+    return err
+
+
+def dit_bound(cfg, t, lc):
+    """Least time of one row 12 launch: the layers' q8_0 weights as stored
+    (int8 and an f16 scale a 32-block), the norm and modulation tables, the
+    cross K/V (bf16), x in and out (f32) and the step's small inputs once each;
+    2 T FLOP a weight plus the attention's 4 T Lk D Hq a layer."""
+    h, d, hq, hkv, inter = (cfg.hidden_size, cfg.head_dim, cfg.num_attention_heads,
+                            cfg.num_key_value_heads, cfg.intermediate_size)
+    n_l, qdim = cfg.num_hidden_layers, hq * d
+    kn = h * (qdim + 2 * hkv * d) + qdim * h + h * qdim + qdim * h + h * 2 * inter + inter * h
+    nbytes = n_l * (kn * (1 + 2 / 32) + (3 * h + 6 * h + 3 * d) * 2 + 2 * hkv * lc * d * 2) \
+        + 2 * t * h * 4 + 6 * h * 4 + 2 * t * d * 4 + lc * 4
+    ops = n_l * (2.0 * t * kn + 4.0 * t * (t + lc) * d * hq)
+    return bound_ms(nbytes, ops, BF16_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -706,7 +923,6 @@ def lm_request(pipe, label, need, kw):
     reset_counts()
     res = pipe.generate_with_stop_condition(LM_CAPTION, LM_LYRICS, LM_DURATION_S, **kw)
     counts, shapes = snapshot_counts()
-    shapes = shapes["q8_0_qmm"]
     log(f"{label}: time_costs " + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
     log(f"{label}: launches " + json.dumps({k: v for k, v in counts.items() if v}))
     require(all(counts[n] > 0 for n in need), f"{label}: a kernel of the path was not "
@@ -733,9 +949,9 @@ def run() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from acestep_tpu_torch import loader, pipeline, weights
+        from acestep_tpu_torch import loader, pipeline, sampler, weights
         from acestep_tpu_torch.config import DiTConfig, QwenConfig, VAEConfig
-        from acestep_tpu_torch.ops.cuda import _build, qmm
+        from acestep_tpu_torch.ops.cuda import _build, dit_mega, qmm, qmm_int8
         from acestep_tpu_torch.ops.cuda import vae_resunit as vru
         from acestep_tpu_torch.serving import launch
     except ImportError as exc:
@@ -793,6 +1009,26 @@ def run() -> int:
                   (1, 20, 128)):
         errs[trio] = max(errs[trio], check_trio(shape, 7))
         checked[trio].add(shape)
+    int8_name, dit_name = qmm_int8.INT8.name, dit_mega.MEGA.name
+    errs[int8_name] = 0.0
+    lm_h, lm_i = 1024, 3072                 # the 0.6B planner: (K, N) of its q8_0 linears
+    int8_shapes = [(m, k, n) for m in (1, 4, 8, 16)
+                   for k, n in ((lm_h, 4096), (2048, lm_h), (lm_h, 2 * lm_i), (lm_i, lm_h),
+                                (lm_h, 65536))]
+    h = dit_cfg.hidden_size
+    int8_shapes += [(1, 256, h), (1, h, h), (1, h, 6 * h)]       # the DiT timestep linears
+    for i, shape in enumerate(int8_shapes):
+        errs[int8_name] = max(errs[int8_name], check_int8(shape, 500 + i))
+    ragged = QmmCase("q8_0", 4, 512, 200, 599)
+    n_int8, n_q8 = qmm_int8.INT8.launches, qmm.KERNELS["q8_0"].launches
+    qmm.qmm_nd(ragged.x, ragged.qt, int8_act=True)
+    require(qmm_int8.INT8.launches == n_int8 and qmm.KERNELS["q8_0"].launches == n_q8 + 1,
+            "N % 128 != 0 with int8_act did not take the q8_0 kernel")
+    log("  int8_act at N = 200 took the q8_0 kernel, as the JAX fallback does")
+
+    phase("check_dit")
+    errs[dit_name] = check_dit_mega(dit_cfg)
+    free_engine()
 
     phase("engine")
     t = time.perf_counter()
@@ -809,6 +1045,26 @@ def run() -> int:
     path10 = [names["q8_0"], unit, trio]
     results, served = {}, {}
     results["10s"], served["10s"] = serve(engine, req, "configs[0] q8_0", 3, path10)
+    # request A: 10.24 s fills its 256-frame bucket, so no self-attention mask;
+    # a second engine object around the weights already on the card
+    engine_a = pipeline.AceStepEngine(engine.dit_params, dit_cfg, engine.vae_params, vae_cfg,
+                                      engine.text_params, text_cfg, device="cuda",
+                                      dit_mega=True, int8_act=True)
+    req_a = dataclasses.replace(req, duration_s=DIT_A_S)
+    n_steps = len(sampler.get_timestep_schedule(req_a.shift, req_a.timesteps))
+    results["A"], served["A"] = serve(
+        engine_a, req_a, "request A (10.24 s, dit_mega + int8_act)", 3, path10 + [dit_name],
+        exact={dit_name: n_steps, int8_name: 6 * n_steps})
+    results["A off"], served["A off"] = serve(
+        engine, req_a, "request A with both switches off", 2, path10,
+        exact={dit_name: 0, int8_name: 0})
+    la, lo = results["A"][-1].latents.ravel(), results["A off"][-1].latents.ravel()
+    lat_cos = float(la.astype(np.float64) @ lo / (np.linalg.norm(la) * np.linalg.norm(lo)))
+    log(f"request A latents, switches on vs off (two different functions): cosine "
+        f"{lat_cos:.6f}")
+    require(np.array_equal(results["A"][1].audio_i16, results["A"][2].audio_i16),
+            "two runs of request A differ")
+    check_audio(results["A"] + results["A off"], int(round(DIT_A_S * 25)) * vae_cfg.hop_length)
 
     phase("output")
     check_audio(results["10s"], 480000)
@@ -830,28 +1086,35 @@ def run() -> int:
         lyric_token_ids=small_rng.integers(0, 512, (1, 40)), seeds=[2])
     noise = torch.randn((1, 256, 8), generator=torch.Generator().manual_seed(5))
 
-    def card_vs_cpu(quant, need):
+    def card_vs_cpu(quant, need, cfg=small_dit, request=small_req, knobs=None):
+        knobs = knobs or {}
         cpu_eng = pipeline.build_random_engine(device="cpu", quant=quant, seed=3,
-                                               dit_cfg=small_dit, vae_cfg=small_vae,
-                                               text_cfg=small_text)
+                                               dit_cfg=cfg, vae_cfg=small_vae,
+                                               text_cfg=small_text, **knobs)
         gpu_eng = pipeline.AceStepEngine(
-            weights.tree_to(cpu_eng.dit_params, "cuda"), small_dit,
+            weights.tree_to(cpu_eng.dit_params, "cuda"), cfg,
             weights.tree_to(cpu_eng.vae_params, "cuda"), small_vae,
-            weights.tree_to(cpu_eng.text_params, "cuda"), small_text, device="cuda")
+            weights.tree_to(cpu_eng.text_params, "cuda"), small_text, device="cuda", **knobs)
         before = snapshot_counts()[0]
-        ref = cpu_eng.generate(small_req, noise=noise).audio.ravel().astype(np.float64)
-        got = gpu_eng.generate(small_req, noise=noise).audio.ravel().astype(np.float64)
+        ref = cpu_eng.generate(request, noise=noise).audio.ravel().astype(np.float64)
+        got = gpu_eng.generate(request, noise=noise).audio.ravel().astype(np.float64)
         after = snapshot_counts()[0]
         require(all(after[n] > before[n] for n in need),
-                f"small {quant} engine on the card missed a kernel of {need}")
+                f"small {quant} engine {knobs} on the card missed a kernel of {need}")
         cos = float(ref @ got / (np.linalg.norm(ref) * np.linalg.norm(got)))
         snr = float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-30)))
-        log(f"small {quant} engine, card (kernels) vs CPU (plain): cosine {cos:.6f} "
+        log(f"small {quant} engine {knobs}, card (kernels) vs CPU (plain): cosine {cos:.6f} "
             f"(>= 0.999), SNR {snr:.2f} dB (>= 26)")
         require(cos >= 0.999 and snr >= 26.0, f"card and CPU disagree on the small "
-                f"{quant} engine")
+                f"{quant} engine {knobs}")
 
     card_vs_cpu("q8_0", path10)
+    # a small engine that meets the megakernel's gate (head dim 128), at 10.24 s
+    mega_dit = dataclasses.replace(small_dit, num_attention_heads=4, num_key_value_heads=2,
+                                   head_dim=128, sliding_window=4)
+    card_vs_cpu("q8_0", [dit_name, int8_name], cfg=mega_dit,
+                request=dataclasses.replace(small_req, duration_s=DIT_A_S),
+                knobs=dict(dit_mega=True, int8_act=True))
 
     phase("engine60")
     del engine
@@ -1000,12 +1263,26 @@ def run() -> int:
     require(pipe.prefix_cache.hits > hits, "phase 2 did not reuse the phase-1 prefill")
     log(f"prefix cache: {pipe.prefix_cache.hits} hits, {pipe.prefix_cache.misses} misses; "
         f"CoT {lm_runs['thinking'][0].cot_text[:60]!r}...")
+    # request B: int8_act on the default path (megakernel; the head through row
+    # 6) and on the layer scan (every layer linear and the head through row 6)
+    for key, mode in (("B default", "auto"), ("B layer scan", "0")):
+        alt = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, ByteTokenizer(), device="cuda",
+                                     decode_mega=mode, int8_act=True)
+        lm_runs[key] = lm_request(alt, f"request B, int8_act, decode_mega={mode}",
+                                  [int8_name] + ([mega_name] if mode == "auto" else []), base_kw)
+        log(f"request B, decode_mega={mode}: {lm_runs[key][1][int8_name]} row 6 launches by "
+            f"(M, K, N): {json.dumps({str(k): v for k, v in lm_runs[key][2][int8_name].items()})}")
+    require(lm_runs["B layer scan"][1][mega_name] == 0, f"decode_mega=0 still ran {mega_name}")
 
     phase("recheck_lm")
     for key, (_, _, shapes) in lm_runs.items():
-        for shape in shapes:
+        for shape in shapes[names["q8_0"]]:
             if shape not in checked[names["q8_0"]]:
                 qcheck("q8_0", shape, 99)
+        for shape in shapes[int8_name]:
+            if shape not in int8_shapes:
+                errs[int8_name] = max(errs[int8_name], check_int8(shape, 99))
+                int8_shapes.append(shape)
 
     phase("output_lm")
     small_lm = QwenConfig(hidden_size=1024, num_hidden_layers=2, num_attention_heads=16,
@@ -1016,39 +1293,51 @@ def run() -> int:
     ids = torch.from_numpy(np.random.default_rng(9).integers(0, 4096, (1, 60)))
     from acestep_tpu_torch.serving import kv_cache as kvc
 
-    def greedy(params, dev, mega, steps=40):
+    def greedy(params, dev, mega, int8, forced=None, steps=40):
+        """Greedy logits of ``steps`` decode steps; ``forced`` (the CPU run's
+        logits) supplies the tokens, so both sides decode the same sequence."""
         cache = kvc.init_cache(2, 1, 8, 256, 128, device=dev)
         lg, cache = lm_serving.prefill(params, small_lm, ids.to(dev),
-                                       torch.tensor([60], dtype=torch.int32, device=dev), cache)
+                                       torch.tensor([60], dtype=torch.int32, device=dev), cache,
+                                       int8_act=int8)
         out = [lg.float().cpu()]
-        for _ in range(steps):
-            tok = out[-1].argmax(-1).to(dev)
-            lg, cache = lm_serving.decode_step(params, small_lm, cache, tok, decode_mega=mega)
+        for i in range(steps):
+            tok = (out[-1] if forced is None else forced[i]).argmax(-1).to(dev)
+            lg, cache = lm_serving.decode_step(params, small_lm, cache, tok, decode_mega=mega,
+                                               int8_act=int8)
             cache.length = cache.length + 1
             out.append(lg.float().cpu())
         return out
 
-    before = snapshot_counts()[0][mega_name]
-    ref_lg = greedy(cpu_p, "cpu", "1")          # the megakernel's plain version
-    got_lg = greedy(gpu_p, "cuda", "auto")      # the megakernel
-    require(snapshot_counts()[0][mega_name] - before == 40,
-            "the small LM on the card skipped the kernel")
-    compared = 0
-    for step, (r, g) in enumerate(zip(ref_lg, got_lg)):
-        top2 = torch.topk(r[0], 2).values
-        gap = float(top2[0] - top2[1])
-        rel = float((g - r).abs().max() / r.abs().max())
-        if step <= 1:
-            log(f"  step {step}: card vs CPU logits max err / peak {rel:.3e} (< {MEGA_REL})")
-            require(rel < MEGA_REL, f"small LM logits at step {step} disagree")
-        if gap < MEGA_REL * float(r.abs().max()):
-            log(f"  step {step}: CPU top-1/top-2 gap {gap:.4g} below {MEGA_REL} x peak; "
-                "the greedy paths may part here")
-            break
-        require(int(g.argmax()) == int(r.argmax()), f"greedy token differs at step {step}")
-        compared += 1
-    log(f"small LM (1024 wide, 2 layers, q8_0) greedy on the card (megakernel) vs the CPU "
-        f"(plain versions): {compared} of {len(ref_lg)} tokens compared, all equal")
+    # (CPU decode_mega, card decode_mega, int8_act, the kernel, its launches in 40
+    # steps, the logits bound)
+    for cpu_mega, gpu_mega, int8, kname, n_launch, rel_max, what in (
+            ("1", "auto", False, mega_name, 40, MEGA_REL, "megakernel"),
+            ("0", "0", True, int8_name, 40 * (2 * 4 + 1) + 1, INT8_LOGIT_REL,
+             "layer scan, int8_act")):
+        before = snapshot_counts()[0][kname]
+        ref_lg = greedy(cpu_p, "cpu", cpu_mega, int8)     # the kernels' plain versions
+        got_lg = greedy(gpu_p, "cuda", gpu_mega, int8, forced=ref_lg)    # the kernels
+        require(snapshot_counts()[0][kname] - before == n_launch,
+                f"the small LM on the card ({what}) skipped {kname}")
+        compared, worst = 0, 0.0
+        for step, (r, g) in enumerate(zip(ref_lg, got_lg)):
+            top2 = torch.topk(r[0], 2).values
+            gap = float(top2[0] - top2[1])
+            rel = float((g - r).abs().max() / r.abs().max())
+            worst = max(worst, rel)
+            if step <= 1:
+                log(f"  {what} step {step}: card vs CPU logits max err / peak {rel:.3e} "
+                    f"(< {rel_max})")
+                require(rel < rel_max, f"small LM logits ({what}) at step {step} disagree")
+            if gap >= MEGA_REL * float(r.abs().max()):
+                require(int(g.argmax()) == int(r.argmax()),
+                        f"greedy token ({what}) differs at step {step}")
+                compared += 1
+        log(f"small LM (1024 wide, 2 layers, q8_0) greedy on the card ({what}) vs the CPU "
+            f"(plain versions), both fed the CPU's tokens: the top token equal at all "
+            f"{compared} of {len(ref_lg)} steps whose CPU top-1/top-2 gap is at least "
+            f"{MEGA_REL} of the peak; logits max err / peak over all steps {worst:.3e}")
     del cpu_p, gpu_p
 
     phase("timing")
@@ -1202,6 +1491,81 @@ def run() -> int:
     log(f"{mega_name} per configs[2] LM request ({n_launch} launches): kernel "
         f"{rows[-1]['ms']:.3f} ms, plain {rows[-1]['plain_ms']:.3f}, bound {bound:.3f} "
         f"({rows[-1]['bound_by']}); no single library call computes a decode step")
+
+    # row 6: each launch shape of a request timed alone, weighted by its launches;
+    # the row is request B's default path (the codes head), the other paths logged
+    def time_int8(label, counts):
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0}
+        for i, (shape, cnt) in enumerate(sorted(counts.items())):
+            case = QmmCase("q8_0", *shape, 700 + i)
+            ms = cuda_ms(lambda: qmm_int8._launch(case.x, case.qt), iters=20)
+            plain = cuda_ms(lambda: qmm_int8.qmm_int8_act_plain(case.x, case.qt), iters=3)
+            lib = cuda_ms(lambda: torch.matmul(case.x, case.wd), iters=20)
+            b, by = int8_bound(*shape)
+            log(f"  {int8_name} M={shape[0]} K={shape[1]} N={shape[2]} x{cnt}/request: kernel "
+                f"{ms:.4f} ms, plain {plain:.4f}, library (matmul on the dequantized bf16 "
+                f"weight) {lib:.4f}, bound {b:.4f} ({by})")
+            for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b)):
+                tot[key] += cnt * v
+            tot["bytes" if by == "bytes" else "ops"] += cnt * b
+        log(f"{int8_name} per {label} ({sum(counts.values())} launches): kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f}, library {tot['lib']:.4f}, bound "
+            f"{tot['bound']:.4f}")
+        return tot
+
+    time_int8("request A (DiT timestep linears)", served["A"][1][int8_name])
+    time_int8("request B on the layer scan", lm_runs["B layer scan"][2][int8_name])
+    tot = time_int8("request B on the default path", lm_runs["B default"][2][int8_name])
+    rows.append({"name": int8_name, "route": "cuda", "source": qmm_int8.INT8.source,
+                 "replaces": qmm_int8.INT8.replaces,
+                 "launches": lm_runs["B default"][1][int8_name], "max_abs_err": errs[int8_name],
+                 "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+                 "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+                 "library_ms": tot["lib"]})
+
+    # row 12 at request A's shapes on the engine's own weights, beside the
+    # port's layer-path DiT step; no single library call computes the step
+    from acestep_tpu_torch.models import dit as tdit
+    from acestep_tpu_torch.models.random_init import RandomInit
+
+    dparams = engine_a.dit_params
+    init = RandomInit(torch.device("cuda"), 900, "q8_0")
+    margs = dit_mega_inputs(init, dit_cfg, dit_cfg.num_hidden_layers, DIT_T, DIT_LC)
+    ms = cuda_ms(lambda: dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs), iters=10)
+    plain = cuda_ms(lambda: dit_mega.dit_layers_mega_plain(dparams["layers"], dit_cfg, *margs),
+                    iters=2)
+    b, by = dit_bound(dit_cfg, DIT_T, DIT_LC)
+    hs = init.normal((1, 2 * DIT_T, dit_cfg.audio_acoustic_hidden_dim), 1.0).bfloat16()
+    ctx = init.normal((1, 2 * DIT_T, dit_cfg.context_dim), 1.0).bfloat16()
+    enc = tdit.compute_condition(dparams, dit_cfg,
+                                 init.normal((1, DIT_LC, dit_cfg.hidden_size), 1.0).bfloat16())
+    kv = tdit.compute_all_cross_kv(dparams, dit_cfg, enc)
+    kv_st = tdit.stack_cross_kv(kv)
+    tt = torch.full((1,), 0.5, device="cuda")
+    encm = torch.ones((1, DIT_LC), dtype=torch.int32, device="cuda")
+    step = {mega: cuda_ms(lambda: tdit.forward(
+        dparams, dit_cfg, hs, tt, tt, ctx, kv, encoder_attn_mask=encm, dit_mega=mega,
+        int8_act=mega, cross_kv_stacked=kv_st), iters=5) for mega in (True, False)}
+    stamps = torch.zeros(2 + len(dit_mega.STAGES) * dit_cfg.num_hidden_layers,
+                         dtype=torch.int64, device="cuda")
+    dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs, stamps=stamps)
+    split = dit_mega.stage_times(stamps, dit_cfg.num_hidden_layers)
+    log(f"  {dit_name} by stage (one launch, ms summed over the layers, each to its grid "
+        f"barrier): " + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"; total {sum(split.values()):.4f}")
+    n_launch = served["A"][0][dit_name]
+    log(f"  {dit_name} T={DIT_T} Lc={DIT_LC} {dit_cfg.num_hidden_layers} layers: kernel "
+        f"{ms:.4f} ms a launch, plain {plain:.4f}, bound {b:.4f} ({by}); the whole DiT step "
+        f"(dit.forward, CUDA events) {step[True]:.4f} ms with the megakernel and int8_act, "
+        f"{step[False]:.4f} ms on the layer path")
+    rows.append({"name": dit_name, "route": "cuda", "source": dit_mega.MEGA.source,
+                 "replaces": dit_mega.MEGA.replaces, "launches": n_launch,
+                 "max_abs_err": errs[dit_name], "ms": ms * n_launch,
+                 "plain_ms": plain * n_launch, "bound_ms": b * n_launch, "bound_by": by,
+                 "library_ms": None})
+    log(f"{dit_name} per request A ({n_launch} launches): kernel {rows[-1]['ms']:.3f} ms, "
+        f"plain {rows[-1]['plain_ms']:.3f}, bound {rows[-1]['bound_ms']:.3f}; the layer-path "
+        f"step x {n_launch}: {step[False] * n_launch:.3f} ms")
     log("device memory of the full-width engines (GiB): "
         + json.dumps({k: round(v, 3) for k, v in memory.items()}))
     log("kernel times are per request: each served shape timed alone (CUDA events, "

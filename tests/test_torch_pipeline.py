@@ -131,6 +131,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/serving/lm.py", "acestep_tpu_torch/serving/kv_cache.py",
                    "acestep_tpu_torch/ops/cuda/decode_attn.py",
                    "acestep_tpu_torch/ops/cuda/decode_mega.py",
+                   "acestep_tpu_torch/ops/cuda/dit_mega.py",
+                   "acestep_tpu_torch/ops/cuda/qmm_int8.py",
                    "acestep_tpu_torch/models/random_init.py"):
         assert module in names, module
     for path in files:
