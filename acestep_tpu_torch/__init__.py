@@ -6,12 +6,12 @@ imports nothing from it and never imports JAX.  It covers text2music at
 batch 1 with q8_0, q4_0, q4_k or q6_k weights: Qwen3 text encoder -> 8-step
 turbo DiT -> Oobleck VAE decode to int16, from random weights or a converted
 checkpoint directory (``serving.launch.build_engine``).  Its hot ops are
-hand-written CUDA C++ kernels for sm_90a (``csrc/*.cu``), built with one plain
-``nvcc`` call and loaded with ctypes:
+hand-written CUDA C++ kernels for sm_90a (``csrc/*.cu``), built with plain
+``nvcc`` calls (one per source, in parallel) and loaded with ctypes:
 
   ops.cuda.qmm          dequant-matmul per quant format (2-D and layer-stacked
-                        weights): q8_0 (csrc/qmm_q8_0.cu), q4_0 / q4_k / q6_k
-                        (csrc/qmm_q4.cu)
+                        weights): q8_0 (csrc/qmm_q8_0.cu), q4_0
+                        (csrc/qmm_q4.cu), q4_k / q6_k (csrc/qmm_kquant.cu)
   ops.cuda.vae_resunit  fused Oobleck residual unit and dilation-1/3/9 trio
 
 Every kernel wrapper runs the kernel for CUDA tensors and its plain PyTorch

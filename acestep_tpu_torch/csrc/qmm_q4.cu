@@ -1,16 +1,12 @@
-// 4-bit and 6-bit dequant-matmuls for Hopper (sm_90a): q4_0, q4_k and q6_k.
+// q4_0 dequant-matmul for Hopper (sm_90a).
 //   out[M, N] = x[M, K] (bf16) @ bf16(dequant(W[K, N])) (+ bias)
-// with f32 accumulation; out is bf16 or f32.  One templated kernel, one
-// dequant step per format:
-//   q4_0: (nib - 8) * f32(scale[k/32])
-//   q4_k: nib * d - m,  d = f32(super[k/256]) * f32(u8 ls[k/32]),
-//                       m = f32(super_min[k/256]) * f32(u8 lm[k/32])
-//   q6_k: ((lo | hi << 4) - 32) * d,  d = f32(super[k/256]) * f32(i8 ls[k/16])
+// with f32 accumulation; out is bf16 or f32; dequant (nib - 8) * f32(scale[k/32]).
+// (q4_k and q6_k have their own kernels, in qmm_kquant.cu.)
 //
-// Replaces the Pallas kernels acestep_tpu/ops/pallas/qmm.py:164 `_q4_0_kernel`,
-// :187 `_q4_k_kernel` and :208 `_q6_k_kernel` (reached through qmm_pallas and,
-// for layer-stacked weights, qmm_pallas_stacked; the stacked form needs no
-// separate kernel here: the wrapper passes the base pointers of layer `li`).
+// Replaces the Pallas kernel acestep_tpu/ops/pallas/qmm.py:164 `_q4_0_kernel`
+// (reached through qmm_pallas and, for layer-stacked weights,
+// qmm_pallas_stacked; the stacked form needs no separate kernel here: the
+// wrapper passes the base pointers of layer `li`).
 //
 // Bound on the H100: at the 60 s decoder's M = 768 patch rows the products are
 // bound by operations (a 2048 x 12288 gate-up product: 38.7 GFLOP = 39 us at
@@ -19,26 +15,24 @@
 // fast: 64 x 64 output tiles, four warps of WMMA bf16 16x16x16 with f32
 // accumulators, so at M = 768 each weight tile is read and dequantized by 12
 // row blocks (L2 serves the repeats) and the tensor cores run far below their
-// wgmma rate.  Redesign (wgmma, a TMA ring, larger M tiles) is later work.
+// wgmma rate.  qmm_kquant.cu's mainloop (wgmma, a cp.async ring, 128-row
+// tiles) can take q4_0 with its own dequant step: later work.
 //
 // Layouts.  Packed nibble row g*128 + r holds K rows g*256 + r (low nibble) and
-// g*256 + 128 + r (high nibble); packed crumb row g*64 + r holds K rows
-// g*256 + {0, 64, 128, 192} + r in bit pairs 0-1, 2-3, 4-5, 6-7.  A K step is
-// half a fold group: step s (0 or 1) of group g takes the 128 K rows
-// g*256 + q*64 + s*32 + i (q = 0..3, i = 0..31), i.e. packed nibble rows
-// g*128 + {0, 64} + s*32 + i (both nibbles used) and crumb rows g*64 + s*32 + i
-// (all four crumbs used), so every weight byte is read once per row block.
-// Shared-memory column / row c of a step stands for K row
-// g*256 + (c/32)*64 + s*32 + c%32; the x tile is gathered in the same order.
-// The scales are read as stored (f32 q4_0 scales and super scales, uint8 or
-// int8 sub-scales), not pre-expanded.
+// g*256 + 128 + r (high nibble).  A K step is half a fold group: step s (0 or
+// 1) of group g takes the 128 K rows g*256 + q*64 + s*32 + i (q = 0..3,
+// i = 0..31), i.e. packed nibble rows g*128 + {0, 64} + s*32 + i (both nibbles
+// used), so every weight byte is read once per row block.  Shared-memory
+// column / row c of a step stands for K row g*256 + (c/32)*64 + s*32 + c%32;
+// the x tile is gathered in the same order.  The f32 scales are read as
+// stored, not pre-expanded.
 //
-// Numerics (as qmm.py:18-19 and the JAX dequantize): dequant in f32 with each
-// multiply and subtract rounded on its own (__fmul_rn / __fsub_rn, so nvcc does
-// not contract them into an FMA), one rounding to bf16, f32 accumulation; the
-// bias is added in f32 before the single output rounding.  K must be a multiple
-// of 256; ragged M and N are masked.  N % 16 == 0 with 16-byte aligned operands
-// takes the vector path, any other N a scalar one.
+// Numerics (as qmm.py:18-19 and the JAX dequantize): dequant in f32 (the
+// multiply as __fmul_rn, so nvcc does not contract it), one rounding to bf16,
+// f32 accumulation; the bias is added in f32 before the single output
+// rounding.  K must be a multiple of 256; ragged M and N are masked.  N % 16
+// == 0 with 16-byte aligned operands takes the vector path, any other N a
+// scalar one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,8 +42,6 @@
 using namespace nvcuda;
 
 namespace {
-
-constexpr int Q4_0 = 0, Q4_K = 1, Q6_K = 2;
 
 constexpr int FOLD = 256;
 constexpr int BM = 64;           // rows of x per block
@@ -66,12 +58,7 @@ constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
 
 struct QArgs {
   const uint8_t* data;          // [K/2, N] fold-256 nibbles
-  const uint8_t* data_hi;       // q6_k: [K/4, N] fold-64 crumbs
-  const float* scales;          // q4_0: [K/32, N]
-  const uint8_t* sub_scales;    // q4_k: uint8 [K/32, N]; q6_k: int8 [K/16, N]
-  const uint8_t* sub_mins;      // q4_k: uint8 [K/32, N]
-  const float* super_scales;    // q4_k / q6_k: [K/256, N]
-  const float* super_mins;      // q4_k: [K/256, N]
+  const float* scales;          // [K/32, N]
 };
 
 // K row of shared-memory column (or B row) c in step s of fold group g
@@ -79,43 +66,23 @@ __device__ __forceinline__ int step_k(int g, int s, int c) {
   return g * FOLD + (c >> 5) * 64 + s * 32 + (c & 31);
 }
 
-// the one dequant rule of each format (both paths call it): `code` is the
-// nibble (q6_k: nibble | crumb << 4), `sc` the q4_0 scale or the super scale,
-// `smin` the q4_k super min, `ls` / `lm` the sub-scale and sub-min
-template <int FMT>
-__device__ __forceinline__ float deq(int code, float sc, float smin, int ls, int lm) {
-  if (FMT == Q4_0) return __fmul_rn((float)(code - 8), sc);
-  const float d = __fmul_rn(sc, (float)ls);
-  if (FMT == Q4_K) return __fsub_rn(__fmul_rn((float)code, d), __fmul_rn(smin, (float)lm));
-  return __fmul_rn((float)(code - 32), d);
-}
+// the dequant rule (both paths call it)
+__device__ __forceinline__ float deq(int nib, float sc) { return __fmul_rn((float)(nib - 8), sc); }
 
 // one weight in f32, gathered from the stored fields (scalar path)
-template <int FMT>
 __device__ __forceinline__ float dequant_at(const QArgs& a, int gk, int gn, int N) {
   const int g = gk / FOLD, j = gk % FOLD;
   const uint8_t byte = a.data[(size_t)(g * 128 + (j & 127)) * N + gn];
   const int nib = j < 128 ? (byte & 15) : (byte >> 4);
-  if (FMT == Q4_0) return deq<FMT>(nib, a.scales[(size_t)(gk >> 5) * N + gn], 0.f, 0, 0);
-  if (FMT == Q4_K)
-    return deq<FMT>(nib, a.super_scales[(size_t)g * N + gn], a.super_mins[(size_t)g * N + gn],
-                    a.sub_scales[(size_t)(gk >> 5) * N + gn],
-                    a.sub_mins[(size_t)(gk >> 5) * N + gn]);
-  const uint8_t crumb = a.data_hi[(size_t)(g * 64 + (j & 63)) * N + gn];
-  const int code = nib | (((crumb >> (2 * (j >> 6))) & 3) << 4);
-  return deq<FMT>(code, a.super_scales[(size_t)g * N + gn], 0.f,
-                  reinterpret_cast<const int8_t*>(a.sub_scales)[(size_t)(gk >> 4) * N + gn], 0);
+  return deq(nib, a.scales[(size_t)(gk >> 5) * N + gn]);
 }
 
-// vector path: per thread 8 x-chunks (8 bf16), two packed nibble rows and (q6_k)
-// one crumb row of 16 columns, and the scales of the four 32-row ranges
+// vector path: per thread 8 x-chunks (8 bf16), two packed nibble rows of 16
+// columns, and the scales of the four 32-row ranges
 struct Prefetch {
   uint4 x[8];
   uint4 w[2];
-  uint4 hi;
-  float4 sc[4][4];   // q4_0: scales of range q; q4_k: [0] super, [1] super_min; q6_k: [0] super
-  uint4 ls[4];       // sub-scales of range q
-  uint4 lm[4];       // q4_k sub-mins of range q
+  float4 sc[4][4];   // scales of range q
 };
 
 __device__ __forceinline__ uint4 ld16(const void* p, bool ok) {
@@ -128,7 +95,6 @@ __device__ __forceinline__ void ld16f(float4* dst, const float* p, bool ok) {
     dst[c] = ok ? reinterpret_cast<const float4*>(p)[c] : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-template <int FMT>
 __device__ __forceinline__ void load_vec(Prefetch& f, const __nv_bfloat16* __restrict__ x,
                                          const QArgs& a, int M, int N, int K, int m0, int n0,
                                          int ks) {
@@ -146,22 +112,11 @@ __device__ __forceinline__ void load_vec(Prefetch& f, const __nv_bfloat16* __res
 #pragma unroll
   for (int v = 0; v < 2; ++v)
     f.w[v] = ld16(a.data + (size_t)(g * 128 + v * 64 + s * 32 + i) * N + gn, ok);
-  if (FMT == Q6_K) f.hi = ld16(a.data_hi + (size_t)(g * 64 + s * 32 + i) * N + gn, ok);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (FMT == Q4_0) ld16f(f.sc[q], a.scales + (size_t)(g * 8 + 2 * q + s) * N + gn, ok);
-    if (FMT == Q4_K) {
-      f.ls[q] = ld16(a.sub_scales + (size_t)(g * 8 + 2 * q + s) * N + gn, ok);
-      f.lm[q] = ld16(a.sub_mins + (size_t)(g * 8 + 2 * q + s) * N + gn, ok);
-    }
-    if (FMT == Q6_K)
-      f.ls[q] = ld16(a.sub_scales + (size_t)(g * 16 + 4 * q + 2 * s + (i >> 4)) * N + gn, ok);
-  }
-  if (FMT != Q4_0) ld16f(f.sc[0], a.super_scales + (size_t)g * N + gn, ok);
-  if (FMT == Q4_K) ld16f(f.sc[1], a.super_mins + (size_t)g * N + gn, ok);
+  for (int q = 0; q < 4; ++q)
+    ld16f(f.sc[q], a.scales + (size_t)(g * 8 + 2 * q + s) * N + gn, ok);
 }
 
-template <int FMT>
 __device__ __forceinline__ void store_vec(const Prefetch& f, __nv_bfloat16* As,
                                           __nv_bfloat16* Bs) {
   const int tid = threadIdx.x;
@@ -171,9 +126,6 @@ __device__ __forceinline__ void store_vec(const Prefetch& f, __nv_bfloat16* As,
     *reinterpret_cast<uint4*>(As + (id >> 4) * A_LD + (id & 15) * 8) = f.x[j];
   }
   const int i = tid >> 2, c4 = tid & 3;
-  const uint8_t* hib = reinterpret_cast<const uint8_t*>(&f.hi);
-  const float* sup = reinterpret_cast<const float*>(&f.sc[0][0]);
-  const float* supm = reinterpret_cast<const float*>(&f.sc[1][0]);
 #pragma unroll
   for (int v = 0; v < 2; ++v) {
     const uint8_t* wb = reinterpret_cast<const uint8_t*>(&f.w[v]);
@@ -181,21 +133,10 @@ __device__ __forceinline__ void store_vec(const Prefetch& f, __nv_bfloat16* As,
     for (int half = 0; half < 2; ++half) {
       const int q = v + 2 * half;           // low nibble: range v; high: range v + 2
       const float* sc = reinterpret_cast<const float*>(&f.sc[q][0]);
-      const uint8_t* ls = reinterpret_cast<const uint8_t*>(&f.ls[q]);
-      const uint8_t* lm = reinterpret_cast<const uint8_t*>(&f.lm[q]);
       __align__(16) __nv_bfloat16 out[16];
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int nib = half ? (wb[e] >> 4) : (wb[e] & 15);
-        float val;
-        if (FMT == Q4_0)
-          val = deq<FMT>(nib, sc[e], 0.f, 0, 0);
-        else if (FMT == Q4_K)
-          val = deq<FMT>(nib, sup[e], supm[e], ls[e], lm[e]);
-        else
-          val = deq<FMT>(nib | (((hib[e] >> (2 * q)) & 3) << 4), sup[e], 0.f, (int8_t)ls[e], 0);
-        out[e] = __float2bfloat16(val);
-      }
+      for (int e = 0; e < 16; ++e)
+        out[e] = __float2bfloat16(deq(half ? (wb[e] >> 4) : (wb[e] & 15), sc[e]));
       uint4* dst = reinterpret_cast<uint4*>(Bs + (q * 32 + i) * B_LD + c4 * 16);
       dst[0] = reinterpret_cast<const uint4*>(out)[0];
       dst[1] = reinterpret_cast<const uint4*>(out)[1];
@@ -203,7 +144,6 @@ __device__ __forceinline__ void store_vec(const Prefetch& f, __nv_bfloat16* As,
   }
 }
 
-template <int FMT>
 __device__ __forceinline__ void fill_scalar(__nv_bfloat16* As, __nv_bfloat16* Bs,
                                             const __nv_bfloat16* __restrict__ x,
                                             const QArgs& a, int M, int N, int K, int m0,
@@ -217,12 +157,12 @@ __device__ __forceinline__ void fill_scalar(__nv_bfloat16* As, __nv_bfloat16* Bs
   for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
     const int r = e / BN, c = e % BN;
     const int gn = n0 + c;
-    Bs[r * B_LD + c] = __float2bfloat16(gn < N ? dequant_at<FMT>(a, step_k(g, s, r), gn, N)
+    Bs[r * B_LD + c] = __float2bfloat16(gn < N ? dequant_at(a, step_k(g, s, r), gn, N)
                                                : 0.0f);
   }
 }
 
-template <int FMT, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 qmm_q4_kernel(const __nv_bfloat16* __restrict__ x, const QArgs a,
               const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
@@ -244,15 +184,15 @@ qmm_q4_kernel(const __nv_bfloat16* __restrict__ x, const QArgs a,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   Prefetch f;
-  if (VEC) load_vec<FMT>(f, x, a, M, N, K, m0, n0, 0);
+  if (VEC) load_vec(f, x, a, M, N, K, m0, n0, 0);
   for (int ks = 0; ks < steps; ++ks) {
     if (VEC) {
-      store_vec<FMT>(f, As, Bs);
+      store_vec(f, As, Bs);
     } else {
-      fill_scalar<FMT>(As, Bs, x, a, M, N, K, m0, n0, ks);
+      fill_scalar(As, Bs, x, a, M, N, K, m0, n0, ks);
     }
     __syncthreads();
-    if (VEC && ks + 1 < steps) load_vec<FMT>(f, x, a, M, N, K, m0, n0, ks + 1);
+    if (VEC && ks + 1 < steps) load_vec(f, x, a, M, N, K, m0, n0, ks + 1);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
@@ -295,7 +235,6 @@ qmm_q4_kernel(const __nv_bfloat16* __restrict__ x, const QArgs a,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int FMT>
 int launch(const void* x, const QArgs& a, const void* bias, void* out, int M, int N, int K,
            int out_bf16, void* stream) {
   if (K % FOLD != 0 || M < 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -304,14 +243,11 @@ int launch(const void* x, const QArgs& a, const void* bias, void* out, int M, in
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* bi = static_cast<const float*>(bias);
-  const void* ptrs[] = {x, a.data, a.data_hi, a.scales, a.sub_scales, a.sub_mins,
-                        a.super_scales, a.super_mins};
-  bool vec = N % 16 == 0;
-  for (const void* p : ptrs) vec = vec && aligned16(p);     // null pointers pass
+  const bool vec = N % 16 == 0 && aligned16(x) && aligned16(a.data) && aligned16(a.scales);
   if (vec)
-    qmm_q4_kernel<FMT, true><<<grid, THREADS, 0, s>>>(xb, a, bi, out, M, N, K, out_bf16);
+    qmm_q4_kernel<true><<<grid, THREADS, 0, s>>>(xb, a, bi, out, M, N, K, out_bf16);
   else
-    qmm_q4_kernel<FMT, false><<<grid, THREADS, 0, s>>>(xb, a, bi, out, M, N, K, out_bf16);
+    qmm_q4_kernel<false><<<grid, THREADS, 0, s>>>(xb, a, bi, out, M, N, K, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,30 +259,5 @@ extern "C" int acestep_qmm_q4_0(const void* x, const void* data, const void* sca
   QArgs a{};
   a.data = static_cast<const uint8_t*>(data);
   a.scales = static_cast<const float*>(scales);
-  return launch<Q4_0>(x, a, bias, out, M, N, K, out_bf16, stream);
-}
-
-extern "C" int acestep_qmm_q4_k(const void* x, const void* data, const void* sub_scales,
-                                const void* sub_mins, const void* super_scales,
-                                const void* super_mins, const void* bias, void* out, int M,
-                                int N, int K, int out_bf16, void* stream) {
-  QArgs a{};
-  a.data = static_cast<const uint8_t*>(data);
-  a.sub_scales = static_cast<const uint8_t*>(sub_scales);
-  a.sub_mins = static_cast<const uint8_t*>(sub_mins);
-  a.super_scales = static_cast<const float*>(super_scales);
-  a.super_mins = static_cast<const float*>(super_mins);
-  return launch<Q4_K>(x, a, bias, out, M, N, K, out_bf16, stream);
-}
-
-extern "C" int acestep_qmm_q6_k(const void* x, const void* data, const void* data_hi,
-                                const void* sub_scales, const void* super_scales,
-                                const void* bias, void* out, int M, int N, int K,
-                                int out_bf16, void* stream) {
-  QArgs a{};
-  a.data = static_cast<const uint8_t*>(data);
-  a.data_hi = static_cast<const uint8_t*>(data_hi);
-  a.sub_scales = static_cast<const uint8_t*>(sub_scales);
-  a.super_scales = static_cast<const float*>(super_scales);
-  return launch<Q6_K>(x, a, bias, out, M, N, K, out_bf16, stream);
+  return launch(x, a, bias, out, M, N, K, out_bf16, stream);
 }

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All ``acestep_tpu_torch/csrc/*.cu`` sources are compiled by ONE plain ``nvcc``
-call into a shared library with a C interface, which is loaded with ctypes:
+Every ``acestep_tpu_torch/csrc/*.cu`` source is compiled by its own plain
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a C interface, which is loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<hash>/libacestep_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o build/kernels/<hash>/<source>.o csrc/<source>.cu      (each, in parallel)
+    nvcc -shared -o build/kernels/<hash>/libacestep_kernels.so build/kernels/<hash>/*.o
 
 No source includes PyTorch's headers, so the build takes seconds, not the
 minutes of ``torch.utils.cpp_extension``.  The library lands in ``build/kernels/``
@@ -35,7 +37,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIB_NAME = "libacestep_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,11 +48,14 @@ SIGNATURES = {
     "acestep_qmm_q8_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, data, scales, bias, out, M, N, K, out_bf16, stream
     "acestep_qmm_q4_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, data, sub_scales, sub_mins, super_scales, super_mins, bias, out, M, N, K,
-    # out_bf16, stream
-    "acestep_qmm_q4_k": [_P] * 8 + [_I, _I, _I, _I, _P],
-    # x, data, data_hi, sub_scales, super_scales, bias, out, M, N, K, out_bf16, stream
-    "acestep_qmm_q6_k": [_P] * 7 + [_I, _I, _I, _I, _P],
+    # x, data, sub_scales, sub_mins, super_scales, super_mins, bias, out, scratch,
+    # M, N, K, out_bf16, bm, splits, stream
+    "acestep_qmm_q4_k": [_P] * 9 + [_I] * 6 + [_P],
+    # x, data, data_hi, sub_scales, super_scales, bias, out, scratch, M, N, K,
+    # out_bf16, bm, splits, stream
+    "acestep_qmm_q6_k": [_P] * 8 + [_I] * 6 + [_P],
+    # a, b, out, stream
+    "acestep_wgmma_tile_check": [_P] * 4,
     # x, w1, b1, w2, b2, a1, be1, a2, be2, out, N, L, C, dilation, stream
     "acestep_vae_res_unit": [_P] * 10 + [_I, _I, _I, _I, _P],
     # x, w1s, b1s, w2s, b2s, a1s, be1s, a2s, be2s, out, N, L, C, stream
@@ -144,20 +149,33 @@ def build(verbose: bool = False) -> str:
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    work = os.path.dirname(out)
+    os.makedirs(work, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    objs = [os.path.join(work, f"{os.path.basename(p)}.{tag}.o") for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    procs = []
+    for src, obj in zip(cu, objs):
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []), "-I", CSRC_DIR,
+               "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    outputs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    link = [nvcc, "-shared", "-o", f"{out}.{tag}", *objs]
+    if all(rc == 0 for _, _, rc in outputs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outputs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    failed = [(cmd, text, rc) for cmd, text, rc in outputs if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}"
+                                     for cmd, text, rc in failed))
+    if verbose:
+        print("".join(text for _, text, _ in outputs), flush=True)
+    os.replace(f"{out}.{tag}", out)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -181,6 +199,9 @@ def check(name: str, err: int) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int
+    (read without making a ``torch.cuda.Stream`` object: a few us less a
+    launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,17 +1,21 @@
 """Dequant-matmuls for every quant format: CUDA kernel wrappers, their plain
 PyTorch version and the 2-D / n-D / layer-stacked entry points.
 
-Kernels (hand-written for sm_90a, WMMA bf16 tensor cores, f32 accumulation):
+Kernels (hand-written for sm_90a, bf16 tensor cores, f32 accumulation):
 
-  q8_0  csrc/qmm_q8_0.cu  replaces acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel
-  q4_0  csrc/qmm_q4.cu    replaces qmm.py:164 _q4_0_kernel
-  q4_k  csrc/qmm_q4.cu    replaces qmm.py:187 _q4_k_kernel
-  q6_k  csrc/qmm_q4.cu    replaces qmm.py:208 _q6_k_kernel
+  q8_0  csrc/qmm_q8_0.cu    replaces acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel
+  q4_0  csrc/qmm_q4.cu      replaces qmm.py:164 _q4_0_kernel
+  q4_k  csrc/qmm_kquant.cu  replaces qmm.py:187 _q4_k_kernel
+  q6_k  csrc/qmm_kquant.cu  replaces qmm.py:208 _q6_k_kernel
+
+(q8_0 and q4_0 on WMMA; q4_k and q6_k on wgmma with a cp.async ring, their
+tile height and K split chosen per shape by :func:`kquant_plan`)
 
 each reached through ``qmm_pallas`` / ``qmm_pallas_nd`` and, for the DiT's
 layer-stacked weights, ``qmm_pallas_stacked`` (scalar-prefetched layer index):
 here the stacked form passes the base pointers of layer ``li`` to the same
-kernel, so no per-layer weight copy is made either.  Every kernel streams the
+kernel (:func:`field_ptrs`: base plus ``li`` layer strides, checked once per
+weight object), so no per-layer weight copy, nor view, is made either.  Every kernel streams the
 quantized fields as stored and dequantizes them in shared memory, so device
 memory never holds a bf16 copy of W.
 
@@ -37,7 +41,10 @@ launches the format's kernel or raises.  Each kernel has its own entry in
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+import math
+import operator
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,6 +64,7 @@ class Kernel(_build.Counted):
 
 _U8, _I8, _F32 = torch.uint8, torch.int8, torch.float32
 _Q4_SRC = "acestep_tpu_torch/csrc/qmm_q4.cu"
+_KQ_SRC = "acestep_tpu_torch/csrc/qmm_kquant.cu"
 KERNELS = {
     "q8_0": Kernel("q8_0_qmm", "acestep_tpu_torch/csrc/qmm_q8_0.cu",
                    "acestep_tpu/ops/pallas/qmm.py:147", entry="acestep_qmm_q8_0",
@@ -64,16 +72,57 @@ KERNELS = {
     "q4_0": Kernel("q4_0_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:164",
                    entry="acestep_qmm_q4_0",
                    fields=(("data", _U8, 2), ("scales", _F32, BLOCK))),
-    "q4_k": Kernel("q4_k_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:187",
+    "q4_k": Kernel("q4_k_qmm", _KQ_SRC, "acestep_tpu/ops/pallas/qmm.py:187",
                    entry="acestep_qmm_q4_k",
                    fields=(("data", _U8, 2), ("sub_scales", _U8, BLOCK),
                            ("sub_mins", _U8, BLOCK), ("super_scales", _F32, SUPER),
                            ("super_mins", _F32, SUPER))),
-    "q6_k": Kernel("q6_k_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:208",
+    "q6_k": Kernel("q6_k_qmm", _KQ_SRC, "acestep_tpu/ops/pallas/qmm.py:208",
                    entry="acestep_qmm_q6_k",
                    fields=(("data", _U8, 2), ("data_hi", _U8, 4), ("sub_scales", _I8, SUB16),
                            ("super_scales", _F32, SUPER))),
 }
+
+
+# the K-quant kernels (csrc/qmm_kquant.cu): blocks of KQ_TN weight columns and
+# BM x rows, each K split a run of whole fold groups
+KQUANT = ("q4_k", "q6_k")
+KQ_TN = 128
+SMS = 132                  # streaming multiprocessors of one H100 SXM
+
+
+@functools.lru_cache(maxsize=None)
+def kquant_plan(m: int, k: int, n: int) -> Tuple[int, int]:
+    """``(bm, splits)`` of the q4_k / q6_k kernels for ``x [m, k] @ W [k, n]``:
+    ``bm`` x rows per block (16, 64 or 128: the wgmma width) and the number of
+    K splits.  The tiles alone fill the card at the decoder's M; where they
+    would leave more than half of the SMs idle (small M: bound by bytes), K is
+    split in whole fold groups until about one block per SM streams the
+    weight."""
+    if m < 1 or n < 1 or k < FOLD or k % FOLD:
+        raise ValueError(f"kquant_plan: no plan for x [{m}, {k}] @ W [{k}, {n}] "
+                         f"(M, N >= 1, K a positive multiple of {FOLD})")
+    bm = 16 if m <= 16 else 64 if m <= 64 else 128
+    tiles = math.ceil(n / KQ_TN) * math.ceil(m / bm)
+    groups = k // FOLD
+    splits = 1
+    if tiles <= SMS // 2:
+        splits = min(groups, SMS // tiles)
+        splits = math.ceil(groups / math.ceil(groups / splits))   # none left empty
+    return bm, splits
+
+
+# the K splits' f32 partial sums, one buffer per (device, stream), grown as
+# needed: the launches of one stream run in order, so they can share it
+_split_scratch = {}
+
+
+def _scratch(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    buf = _split_scratch.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _split_scratch[(device, stream)] = buf
+    return buf
 
 
 def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
@@ -86,8 +135,53 @@ def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = N
     return y.to(out_dtype)
 
 
+def _check_fields(qt: QuantTensor, tensors, device):
+    """(base pointers, layer strides in bytes) of the kernel's fields, after
+    checking their type, shape, layout and device."""
+    k, n = qt.shape
+    lead = (qt.num_layers,) if qt.stacked else ()
+    bases, strides = [], []
+    for (field, dtype, rows_per), a in zip(KERNELS[qt.fmt].fields, tensors):
+        want = lead + (k // rows_per, n)
+        if a is None or a.dtype != dtype or tuple(a.shape) != want:
+            raise ValueError(
+                f"qmm: {qt.fmt} field {field} must be {dtype} {list(want)} "
+                "(f32 scales: pre-cast them once), got "
+                f"{None if a is None else (a.dtype, tuple(a.shape))}")
+        if not a.is_contiguous() or a.device != device:
+            raise ValueError(f"qmm: {qt.fmt} field {field} must be contiguous and on "
+                             f"{device}")
+        bases.append(a.data_ptr())
+        strides.append((k // rows_per) * n * a.element_size())
+    return bases, strides
+
+
+def field_ptrs(qt: QuantTensor, device: torch.device, li: Optional[int] = None):
+    """The data pointers of the format kernel's fields, in its entry point's
+    order.  Layer ``li`` of a stacked weight is each field's base pointer plus
+    ``li`` layer strides: no view is made.  The checks run once per weight
+    object and device; the result is kept on the object beside the field
+    tensors it was made from, and made anew when one of them is replaced."""
+    tensors = tuple(getattr(qt, f) for f, _, _ in KERNELS[qt.fmt].fields)
+    memo = qt.__dict__.get("_kernel_fields")
+    if memo is None or memo[0] != device or not all(map(operator.is_, memo[1], tensors)):
+        memo = (device, tensors, _check_fields(qt, tensors, device))
+        qt.__dict__["_kernel_fields"] = memo
+    bases, strides = memo[2]
+    if li is None:
+        if qt.stacked:
+            raise ValueError("qmm: a stacked weight needs a layer index")
+        return bases
+    if not qt.stacked:
+        raise ValueError("qmm: a layer index needs a stacked weight")
+    if not -qt.num_layers <= li < qt.num_layers:
+        raise IndexError(f"qmm: layer {li} of a {qt.num_layers}-layer weight")
+    li %= qt.num_layers
+    return [b + li * st for b, st in zip(bases, strides)]
+
+
 def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
-            out_dtype) -> torch.Tensor:
+            out_dtype, li: Optional[int] = None) -> torch.Tensor:
     kern = KERNELS[qt.fmt]
     m, k = x.shape
     kk, n = qt.shape
@@ -95,56 +189,70 @@ def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
     if k != kk or k % align:
         raise ValueError(f"qmm: x [{m}, {k}] against {qt.fmt} weight {qt.shape} "
                          f"(K must be a multiple of {align})")
-    ptrs = []
-    for field, dtype, rows_per in kern.fields:
-        a = getattr(qt, field)
-        if a is None or a.dtype != dtype or tuple(a.shape) != (k // rows_per, n):
-            raise ValueError(
-                f"qmm: {qt.fmt} field {field} must be {dtype} [{k // rows_per}, {n}] "
-                "(f32 scales: pre-cast them once), got "
-                f"{None if a is None else (a.dtype, tuple(a.shape))}")
-        if not a.is_contiguous() or a.device != x.device:
-            raise ValueError(f"qmm: {qt.fmt} field {field} must be contiguous and on "
-                             f"{x.device}")
-        ptrs.append(a.data_ptr())
+    ptrs = field_ptrs(qt, x.device, li)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"qmm: output dtype {out_dtype} not supported")
-    x = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
     bias_ptr = None
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
         if bias.shape != (n,):
             raise ValueError(f"qmm: bias must be [{n}], got {tuple(bias.shape)}")
         bias_ptr = bias.data_ptr()
-    err = getattr(_build.lib(), kern.entry)(
-        x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), m, n, k,
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(x))
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        x = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    lib, stream = _build.lib(), _build.stream_ptr(x)
+    if qt.fmt in KQUANT:
+        if x.data_ptr() % 16:
+            x = x.clone()              # the kernels read x in 16-byte pieces
+        bm, splits = kquant_plan(m, k, n)
+        scratch = _scratch(x.device, stream, splits * m * n).data_ptr() if splits > 1 else None
+        err = getattr(lib, kern.entry)(x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), scratch,
+                                       m, n, k, out_bf16, bm, splits, stream)
+    else:
+        err = getattr(lib, kern.entry)(x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), m, n,
+                                       k, out_bf16, stream)
     _build.check(kern.entry, err)
     kern.count((m, k, n))
     return out
 
 
+def wgmma_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [64, 64] @ b [128, 64]^T`` (bf16 in, f32 out) through one plain
+    wgmma tile that uses the K-quant kernels' descriptor, swizzle, A fragment
+    and accumulator layouts (their check against ``torch.matmul``)."""
+    if a.shape != (64, 64) or b.shape != (128, 64) or a.device.type != "cuda":
+        raise ValueError("wgmma_tile: a [64, 64] and b [128, 64] on a CUDA device")
+    a, b = a.to(torch.bfloat16).contiguous(), b.to(torch.bfloat16).contiguous()
+    out = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    _build.check("acestep_wgmma_tile_check", _build.lib().acestep_wgmma_tile_check(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), _build.stream_ptr(a)))
+    return out
+
+
 def qmm(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
-        out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x [M, K] @ dequant(qt) [K, N] (+ bias) -> [M, N]`` in ``out_dtype``."""
+        out_dtype=torch.bfloat16, li: Optional[int] = None) -> torch.Tensor:
+    """``x [M, K] @ dequant(qt) [K, N] (+ bias) -> [M, N]`` in ``out_dtype``
+    (with ``li``: layer ``li`` of a stacked weight)."""
     if x.device.type == "cpu":
-        return qmm_plain(x, qt, bias, out_dtype)
+        return qmm_plain(x, qt if li is None else qt.layer(li), bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"qmm: unsupported device {x.device}")
-    return _launch(x, qt, bias, out_dtype)
+    return _launch(x, qt, bias, out_dtype, li)
 
 
-def _qmm_2d(x: torch.Tensor, qt: QuantTensor, bias, out_dtype, int8_act: bool):
+def _qmm_2d(x: torch.Tensor, qt: QuantTensor, bias, out_dtype, int8_act: bool,
+            li: Optional[int] = None):
     if (int8_act and qt.fmt == "q8_0" and x.shape[0] <= _int8.MAX_M
             and qt.shape[1] % _int8.N_ALIGN == 0):
-        y = _int8.qmm_int8_act(x, qt)
+        y = _int8.qmm_int8_act(x, qt if li is None else qt.layer(li))
         if bias is None:
             return y.to(out_dtype)
         return (y.float() + bias.float()).to(out_dtype)
-    return qmm(x, qt, bias, out_dtype)
+    return qmm(x, qt, bias, out_dtype, li)
 
 
 def qmm_nd(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
@@ -162,7 +270,7 @@ def qmm_stacked(x: torch.Tensor, qt: QuantTensor, li: int,
     weight, read in place (no per-layer copy)."""
     if not qt.stacked:
         raise ValueError("qmm_stacked: weight has no layer axis")
-    return qmm(x, qt.layer(li), bias, out_dtype)
+    return qmm(x, qt, bias, out_dtype, li)
 
 
 def qmm_stacked_nd(x: torch.Tensor, qt: QuantTensor, li: int,
@@ -173,4 +281,6 @@ def qmm_stacked_nd(x: torch.Tensor, qt: QuantTensor, li: int,
     :func:`qmm_nd`."""
     if not qt.stacked:
         raise ValueError("qmm_stacked_nd: weight has no layer axis")
-    return qmm_nd(x, qt.layer(li), bias, out_dtype, int8_act)
+    lead = x.shape[:-1]
+    y = _qmm_2d(x.reshape(-1, x.shape[-1]), qt, bias, out_dtype, int8_act, li)
+    return y.reshape(*lead, qt.shape[1])

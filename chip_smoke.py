@@ -5,9 +5,12 @@
 
 Phases, each announced by a timestamped line:
   1. gpu        the card's name and power limit (nvidia-smi)
-  2. build      compile csrc/*.cu with one nvcc call into build/kernels/ (ctypes)
+  2. build      compile csrc/*.cu, one nvcc per source, all started together,
+                into one library in build/kernels/ (ctypes)
   3. check      each kernel against its plain PyTorch version at the shapes the
-                10 s and the 60 s paths launch, plus ragged M and N.  q8_0
+                10 s and the 60 s paths launch, plus ragged M and N (and for
+                the q4_k / q6_k kernels the M = 1536 decoder shapes of the
+                120 s bucket).  q8_0
                 matmul: atol 1e-2 + rtol 1e-2 in bf16.  q4_0 / q4_k / q6_k: the
                 JAX package's kernel-test bound (test_qmm_pallas.py), max error
                 below 2% of the mean |output| on the f32 outputs and >= 98% of
@@ -40,9 +43,9 @@ Phases, each announced by a timestamped line:
   8. engine60   the full-width random q4_0 engine (the q8_0 engine freed first)
   9. serve60    configs[1]: the same request at 60 s, three times at q4_0
                 (q4_0_qmm, q8_0_qmm, vae_res_unit and vae_res_trio launched in
-                each), then once as warm-up and once timed at q4_k and at q6_k,
-                one full-width engine at a time, each with its own kernel
-                launched
+                each), then three times (one warm-up, two timed) at q4_k and at
+                q6_k, one full-width engine at a time, each with its own kernel
+                launched and the two timed requests' int16 identical
  10. output60   audio_lengths == [2880000], int16 [1, >=2880000, 2],
                 non-constant, finite positive scale; a small q4_0, q4_k and q6_k
                 engine each on the card against the same engine on the CPU, at
@@ -84,9 +87,11 @@ Phases, each announced by a timestamped line:
                 megakernel, and with int8_act on the layer scan
  18. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
-                over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32); the
-                LM kernels at three valid lengths of the request, weighted by
-                its launches; the DiT megakernel beside the layer-path step
+                over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32), the
+                q4_k / q6_k shapes also as a CUDA graph (device time) with
+                their TFLOP/s; the LM kernels at three valid lengths of the
+                request, weighted by its launches; the DiT megakernel beside
+                the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -194,6 +199,32 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    the graph replayed ``replays`` times between two CUDA events (no host
+    cost between the launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -991,10 +1022,15 @@ def run() -> int:
                               [(77, 2048, 200), (1, 96, 64), (129, 6144, 2048)]):
         qcheck("q8_0", shape, i)
     shapes60 = main_path_shapes(dit_cfg, text_cfg, frames=1536)
+    # the decoder shapes of configs[2]'s 120 s bucket (M = 1536) for the K-quant kernels
+    decoder120 = [s for s in main_path_shapes(dit_cfg, text_cfg, frames=3072)
+                  if s[0] == 3072 // dit_cfg.patch_size and s[1] % 256 == 0]
     for fmt in FOUR_BIT:
         by_kernel = shapes_by_kernel(fmt, shapes60)
         for kfmt, shapes in sorted(by_kernel.items()):
             extra = [(77, 2048, 200), (5, 512, 40)] if kfmt == fmt else []
+            if kfmt == fmt and fmt in qmm.KQUANT:
+                extra += decoder120
             for i, shape in enumerate(shapes + extra):
                 if shape not in checked[names[kfmt]]:
                     qcheck(kfmt, shape, 1000 + i)
@@ -1143,7 +1179,10 @@ def run() -> int:
         log(f"full-width {fmt} engine built on the card in {time.perf_counter() - t:.1f} s; "
             f"device memory {memory[fmt]:.2f} GiB")
         results[f"60s {fmt}"], served[f"60s {fmt}"] = serve(
-            engine, req60, f"configs[1] at {fmt}", 2, [names[fmt], unit, trio])
+            engine, req60, f"configs[1] at {fmt}", 3, [names[fmt], unit, trio])
+        require(np.array_equal(results[f"60s {fmt}"][1].audio_i16,
+                               results[f"60s {fmt}"][2].audio_i16),
+                f"two runs of the 60 s {fmt} request differ")
     del engine
     free_engine()
 
@@ -1349,16 +1388,34 @@ def run() -> int:
         return F.conv1d(y, tens[2].t()[:, :, None], tens[3])
 
     def time_qmm(fmt, counts):
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0,
+               "graph": 0.0, "lib_graph": 0.0}
         for i, (shape, cnt) in enumerate(sorted(counts.items())):
             case = QmmCase(fmt, *shape, 200 + i)
-            ms = cuda_ms(lambda: qmm._launch(case.x, case.qt, None, torch.bfloat16))
+
+            def kern():
+                return qmm._launch(case.x, case.qt, None, torch.bfloat16)
+
+            def lib_call():
+                return torch.matmul(case.x, case.wd)
+
+            ms = cuda_ms(kern)
             plain = cuda_ms(lambda: qmm.qmm_plain(case.x, case.qt))
-            lib = cuda_ms(lambda: torch.matmul(case.x, case.wd))
+            lib = cuda_ms(lib_call)
             b, by = case.bound()
+            extra = ""
+            if fmt in qmm.KQUANT:
+                # device time alone (the eager time above includes the wrapper's host
+                # cost where the device is faster), and the rate
+                g, lg = graph_ms(kern), graph_ms(lib_call)
+                tot["graph"] += cnt * g
+                tot["lib_graph"] += cnt * lg
+                extra = (f"; CUDA graph: kernel {g:.4f} ms "
+                         f"({2.0 * shape[0] * shape[1] * shape[2] / g / 1e9:.1f} TFLOP/s), "
+                         f"library {lg:.4f}")
             log(f"  {names[fmt]} M={shape[0]} K={shape[1]} N={shape[2]} x{cnt}/request: "
                 f"kernel {ms:.4f} ms, plain {plain:.4f}, library {lib:.4f}, "
-                f"bound {b:.4f} ({by})")
+                f"bound {b:.4f} ({by}){extra}")
             for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b)):
                 tot[key] += cnt * v
             tot["bytes" if by == "bytes" else "ops"] += cnt * b
@@ -1397,7 +1454,9 @@ def run() -> int:
         fmt = next((f for f, n in names.items() if n == name), None)
         tot = time_qmm(fmt, counts) if fmt else time_res(name, counts)
         log(f"{name} per {path} request: kernel {tot['ms']:.4f} ms, plain "
-            f"{tot['plain']:.4f}, library {tot['lib']:.4f}, bound {tot['bound']:.4f}")
+            f"{tot['plain']:.4f}, library {tot['lib']:.4f}, bound {tot['bound']:.4f}"
+            + (f"; CUDA graph: kernel {tot['graph']:.4f} ms, library {tot['lib_graph']:.4f}"
+               if tot.get("graph") else ""))
         return tot
 
     # each kernel's row from the path that introduced it; the other paths' totals
