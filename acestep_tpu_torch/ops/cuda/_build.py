@@ -63,11 +63,11 @@ SIGNATURES = {
     # shared-memory bytes of one block: (C, dilation) / (C)
     "acestep_vae_res_unit_smem": [_I, _I],
     "acestep_vae_res_trio_smem": [_I],
-    # q, kc, ksc, vc, vsc, lengths, k_self, v_self, out, B, Hq, Hkv, T, li, tb, stream
-    "acestep_decode_attn": [_P] * 9 + [_I] * 6 + [_P],
-    # q, k, v, q_norm, k_norm, cos, sin, kc, ksc, vc, vsc, lengths, out, k_new,
-    # ks_new, v_new, vs_new, B, Hq, Hkv, T, li, tb, eps, stream
-    "acestep_decode_attn_fused": [_P] * 17 + [_I] * 6 + [_F, _P],
+    # one pointer to the call's 8-byte slots (csrc/decode_attn.cu: enum Slot)
+    "acestep_decode_attn": [_P],
+    "acestep_decode_attn_fused": [_P],
+    # (B, Hq, Hkv, T) -> floats of scratch (< 0: not taken)
+    "acestep_decode_attn_scratch": [_I] * 4,
     # 8 weight fields, scales_f16, 4 norms, kc, ksc, vc, vsc, lengths, x0, cos, sin,
     # x, k_new, ks_new, v_new, vs_new, scratch, sync, stamps, L, B, H, Hq, Hkv, I, T,
     # eps, grid, stream

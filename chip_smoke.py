@@ -59,7 +59,8 @@ Phases, each announced by a timestamped line:
  13. check_lm   the LM decode kernels against their plain versions at the
                 0.6B planner's full width (16 query / 8 kv heads, 28 layers of
                 int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
-                ragged: decode_attn and decode_attn_fused 2e-2 (the fused new
+                ragged, T = 1024 (one T block) and lengths on chunk and T-block
+                edges: decode_attn and decode_attn_fused 2e-2 (the fused new
                 K/V int8 within 2); decode_mega through its first 2 and all 28
                 layers, each depth held to 1.5x the drift measured in this run
                 between its plain version on the card and on the CPU (x max
@@ -90,8 +91,8 @@ Phases, each announced by a timestamped line:
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32), the
                 q4_k / q6_k shapes also as a CUDA graph (device time) with
                 their TFLOP/s; the LM kernels at three valid lengths of the
-                request, weighted by its launches; the DiT megakernel beside
-                the layer-path step
+                request, weighted by its launches (rows 9 / 10 also as CUDA
+                graphs beside SDPA); the DiT megakernel beside the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -723,6 +724,27 @@ def mega_case(layers, b, lengths, seed, t_max=LM_T, n_layers=28):
     return (kq, ks, vq, vs, lens, x0, cos, sin)
 
 
+def sdpa_lib(c, li, n):
+    """One ``scaled_dot_product_attention`` call on the dequantized bf16 layer
+    ``li`` (first ``n`` positions) plus the self token, for a B = 1 case of
+    :func:`attn_case` (the dequantization is made here, outside the call)."""
+    import torch
+    import torch.nn.functional as F
+
+    kq, ks, vq, vs = c["cache"]
+    k = torch.cat([(kq[li, :, :, :n].float() * ks[li, :, :, :n, None]).bfloat16(),
+                   c["k"][:, :, None]], dim=2)
+    v = torch.cat([(vq[li, :, :, :n].float() * vs[li, :, :, :n, None]).bfloat16(),
+                   c["v"][:, :, None]], dim=2)
+    q = c["q"][:, :, None]
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    except TypeError:       # an older torch: expand the kv heads outside the timing
+        k2, v2 = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, k2, v2)
+
+
 def check_attn_pair(label, got, ref, fused: bool) -> float:
     import torch
 
@@ -1244,12 +1266,17 @@ def run() -> int:
         errs[name] = 0.0
 
     phase("check_lm")
-    attn_cases = ((1, [1]), (1, [128]), (1, [777]), (4, [1, 128, 700, 1408]),
-                  (8, [1, 128, 129, 640, 1000, 1300, 1407, 1408]))
-    for i, (b, lengths) in enumerate(attn_cases):
-        c = attn_case(b, lengths, 50 + i)
+    # (B, lengths, T): T = 1024 is one T block, so all its chunks share one
+    # anchor; the last case puts lengths on chunk and T-block edges (and at 64)
+    attn_cases = ((1, [1], LM_T), (1, [128], LM_T), (1, [777], LM_T),
+                  (4, [1, 128, 700, 1408], LM_T),
+                  (8, [1, 128, 129, 640, 1000, 1300, 1407, 1408], LM_T),
+                  (2, [1000, 1024], 1024),
+                  (8, [63, 64, 65, 127, 128, 129, 256, 257], LM_T))
+    for i, (b, lengths, t_max) in enumerate(attn_cases):
+        c = attn_case(b, lengths, 50 + i, t_max=t_max)
         for li in (0, 27):
-            tag = f"B={b} T={LM_T} lengths={lengths} layer {li}"
+            tag = f"B={b} T={t_max} lengths={lengths} layer {li}"
             errs[attn_name] = max(errs[attn_name], check_attn_pair(
                 f"{attn_name} {tag}", decode_attn.decode_attention_int8_stacked(*attn_args(c, li)),
                 decode_attn.decode_attention_plain(*attn_args(c, li)), False))
@@ -1487,36 +1514,36 @@ def run() -> int:
     steps = [l0 + i for i in range(lm_pipeline.code_bucket(LM_CODES + 2) - 1)]
     probe = (steps[0], steps[len(steps) // 2], steps[-1])
 
-    def sdpa_lib(c, li, n):
-        kq, ks, vq, vs = c["cache"]
-        k = torch.cat([(kq[li, :, :, :n].float() * ks[li, :, :, :n, None]).bfloat16(),
-                       c["k"][:, :, None]], dim=2)
-        v = torch.cat([(vq[li, :, :, :n].float() * vs[li, :, :, :n, None]).bfloat16(),
-                       c["v"][:, :, None]], dim=2)
-        q = c["q"][:, :, None]
-        try:
-            F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
-            return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
-        except TypeError:       # an older torch: expand the kv heads outside the timing
-            k2, v2 = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
-            return lambda: F.scaled_dot_product_attention(q, k2, v2)
-
     for name, mode, fused in ((attn_name, "pallas", False), (fused_name, "fused", True)):
         n_launch = lm_runs[mode][1][name]
-        per = {"ms": [], "plain": [], "lib": []}
+        per = {"ms": [], "plain": [], "lib": [], "dev": [], "lib_dev": []}
+        fn = (decode_attn.decode_attention_fused_stacked if fused
+              else decode_attn.decode_attention_int8_stacked)
+        plain = (decode_attn.decode_attention_fused_plain if fused
+                 else decode_attn.decode_attention_plain)
         for n in probe:
             c = attn_case(1, [n], 300)
-            fn = (decode_attn.decode_attention_fused_stacked if fused
-                  else decode_attn.decode_attention_int8_stacked)
-            plain = (decode_attn.decode_attention_fused_plain if fused
-                     else decode_attn.decode_attention_plain)
             a = fused_args(c, 0) if fused else attn_args(c, 0)
-            per["ms"].append(cuda_ms(lambda: fn(*a), iters=50))
+            lib = sdpa_lib(c, 0, n)
+            # a request's 21476 launches run on one plan of the wrapper (cache
+            # checks, scratch, outputs made POOL at a time): make it and its first
+            # pool before the timed calls, as a request's first steps do, and time
+            # POOL calls, which make one pool as a request does every POOL calls
+            for _ in range(decode_attn.POOL + 1):
+                fn(*a)
+            per["ms"].append(cuda_ms(lambda: fn(*a), iters=decode_attn.POOL))
             per["plain"].append(cuda_ms(lambda: plain(*a), iters=10))
-            per["lib"].append(cuda_ms(sdpa_lib(c, 0, n), iters=50))
-            log(f"  {name} B=1 T={LM_T} length {n}: kernel {per['ms'][-1]:.4f} ms, plain "
-                f"{per['plain'][-1]:.4f}, library (SDPA, dequantization excluded) "
-                f"{per['lib'][-1]:.4f}, bound {attn_bound(1, n, fused)[0]:.6f}")
+            per["lib"].append(cuda_ms(lib, iters=decode_attn.POOL))
+            # device time alone (CUDA graphs): the eager times above include the
+            # host's cost of each call where the device is faster
+            per["dev"].append(graph_ms(lambda: fn(*a)))
+            per["lib_dev"].append(graph_ms(lib))
+            b_ms = attn_bound(1, n, fused)[0]
+            log(f"  {name} B=1 T={LM_T} length {n}: kernel {per['ms'][-1] * 1e3:.2f} us a "
+                f"launch eager, {per['dev'][-1] * 1e3:.2f} us device; library (SDPA, "
+                f"dequantization excluded) {per['lib'][-1] * 1e3:.2f} us eager, "
+                f"{per['lib_dev'][-1] * 1e3:.2f} us device; plain {per['plain'][-1]:.4f} ms; "
+                f"bound {b_ms * 1e3:.3f} us (device / bound {per['dev'][-1] / b_ms:.1f})")
         per_step = n_launch / len(steps)          # one launch per layer per step
         bound = sum(attn_bound(1, n, fused)[0] for n in steps) * per_step
         by = attn_bound(1, steps[len(steps) // 2], fused)[1]
@@ -1528,7 +1555,8 @@ def run() -> int:
                      "bound_ms": bound, "bound_by": by, "library_ms": mean["lib"] * n_launch})
         log(f"{name} per decode_attn={mode} request ({n_launch} launches): kernel "
             f"{rows[-1]['ms']:.3f} ms, plain {rows[-1]['plain_ms']:.3f}, library "
-            f"{rows[-1]['library_ms']:.3f}, bound {bound:.3f}")
+            f"{rows[-1]['library_ms']:.3f}, bound {bound:.3f}; device time alone: kernel "
+            f"{mean['dev'] * n_launch:.3f} ms, library {mean['lib_dev'] * n_launch:.3f}")
     n_launch = lm_runs["default 2"][1][mega_name]
     layers = pipe.params["layers"]
     per = {"ms": [], "plain": []}

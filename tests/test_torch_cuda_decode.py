@@ -7,7 +7,11 @@ CPU mode).  The file imports neither JAX nor the JAX package:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_decode.py -q
 
 Tolerances (the JAX kernel tests'): decode attention 2e-2 absolute and
-relative; the fused kernel's new K/V int8 within 2 and scales to rtol 2e-2;
+relative, and beside it a tighter bound relative to the output's peak set from
+the error measured on the card (TIGHT_REL), which the variant with a global
+anchor misses; the fused kernel's new K/V int8 within 2 and scales to rtol
+2e-2; the cases take both of the kernels' designs (one cluster launch, or two
+launches); reruns bit-identical;
 the megakernel at the JAX test's depth of 2 layers: output rows within 2e-2 of
 their peak with the same argmax, int8 K/V within 2, scales to rtol 2e-2.  Both
 sides run the same arithmetic; what differs is the f32 summation order, which
@@ -60,16 +64,34 @@ def _to_cpu(args):
     return [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-ATTN_CASES = [   # (b, hq, hkv, t_max, n_l, lengths)
+# (b, hq, hkv, t_max, n_l, lengths).  The kernels run one cluster launch per
+# call where the cache has at most 32 chunks of 128 positions and the grid
+# (B x Hkv x min(chunks, 16) blocks) at most 256 blocks, else two launches.
+ATTN_CASES = [
     (1, 8, 4, 256, 2, [1]), (1, 8, 4, 256, 2, [7]), (1, 8, 4, 256, 2, [200]),
     (4, 8, 4, 256, 2, [1, 100, 128, 256]), (2, 16, 4, 512, 2, [300, 511]),
-    (1, 16, 8, 1408, 2, [1]), (4, 16, 8, 1408, 2, [1, 128, 700, 1408]),
-    (8, 16, 8, 1408, 2, [1, 128, 129, 640, 1000, 1300, 1407, 1408]),
+    (1, 16, 8, 1408, 2, [1]),
+    (4, 16, 8, 1408, 2, [1, 128, 700, 1408]),                 # two launches: 352 blocks
+    (8, 16, 8, 1408, 2, [1, 128, 129, 640, 1000, 1300, 1407, 1408]),   # two launches
+    # T = 1024: one T block, so every chunk shares one anchor
+    (4, 16, 8, 1024, 2, [64, 65, 1000, 1024]),
+    (2, 16, 8, 4096, 2, [1025, 4096]),                        # four 1024-position blocks
+    (1, 16, 8, 8192, 2, [5000]),                              # two launches: 64 chunks
+    (6, 4, 4, 1408, 2, [63, 64, 65, 127, 128, 129]),          # G = 1, edges; two launches
+    (5, 16, 2, 1408, 2, [64, 128, 256, 257, 1408]),           # G = 8
 ]
+# Beside the 2e-2 bound, both kernels are held to this bound relative to the
+# output's peak.  The kernels' post-rope q and k equal rms_norm_rope's bit for
+# bit; what they part by is the f32 order of the score sums, which moves a
+# bf16 rounding of p * v_scale now and then.  Largest errors on the H100 over
+# these cases: row 9 1.67e-4, row 10 2.6e-5; the variant that rounds against
+# the global max instead of each block's running max parts by 1.8e-3 (row 9)
+# and 1.2e-3 (row 10) on the rising caches of
+# test_global_anchor_misses_the_bound_on_the_card (tools/decode_attn_errors.py).
+TIGHT_REL = 2.5e-4
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"b{c[0]}-h{c[1]}-{c[2]}-t{c[3]}")
-def test_decode_attn_kernels_vs_plain(dev, case):
+def _attn_inputs(case, dev):
     b, hq, hkv, t_max, n_l, lengths = case
     g = torch.Generator(device=dev).manual_seed(sum(lengths))
     kq, ks, vq, vs = _cache(g, n_l, b, hkv, t_max, dev)
@@ -80,24 +102,146 @@ def test_decode_attn_kernels_vs_plain(dev, case):
     qn = torch.randn(128, generator=g, device=dev)
     kn = torch.randn(128, generator=g, device=dev)
     cos, sin = (t[:, 0] for t in tlm._rope_at(lens, 128, 1e6))
-    for li in range(n_l):
+    return (q, kq, ks, vq, vs, lens, k_self, v_self), (qn, kn, cos, sin)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"b{c[0]}-h{c[1]}-{c[2]}-t{c[3]}")
+def test_decode_attn_kernels_vs_plain(dev, case):
+    (q, kq, ks, vq, vs, lens, k_self, v_self), (qn, kn, cos, sin) = _attn_inputs(case, dev)
+    for li in range(case[4]):
         args = (q, kq, ks, vq, vs, lens, li, k_self, v_self)
         n0 = tattn.ATTN.launches
         got = tattn.decode_attention_int8_stacked(*args)
         assert tattn.ATTN.launches == n0 + 1
         ref = tattn.decode_attention_plain(*args)
         torch.testing.assert_close(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
+        assert _rel(got, ref) <= TIGHT_REL, _rel(got, ref)
+        assert torch.equal(tattn.decode_attention_int8_stacked(*args), got)   # reruns
         # the plain version on the card agrees with it on the CPU
         torch.testing.assert_close(ref.cpu(), tattn.decode_attention_plain(*_to_cpu(args)),
                                    atol=1e-3, rtol=1e-3)
         fargs = (q, k_self, v_self, qn, kn, cos, sin, kq, ks, vq, vs, lens, li)
+        n0 = tattn.FUSED.launches
         got_f = tattn.decode_attention_fused_stacked(*fargs)
+        assert tattn.FUSED.launches == n0 + 1
         ref_f = tattn.decode_attention_fused_plain(*fargs)
         torch.testing.assert_close(got_f[0], ref_f[0], atol=ATTN_TOL, rtol=ATTN_TOL)
+        assert _rel(got_f[0], ref_f[0]) <= TIGHT_REL, _rel(got_f[0], ref_f[0])
         for i in (1, 3):
             assert int((got_f[i].int() - ref_f[i].int()).abs().max()) <= INT8_MAX_DIFF
         for i in (2, 4):
             torch.testing.assert_close(got_f[i], ref_f[i], rtol=2e-2, atol=1e-6)
+        for a, c in zip(got_f, tattn.decode_attention_fused_stacked(*fargs)):
+            assert torch.equal(a, c)
+
+
+def rising_case(dev, fused: bool):
+    """One sequence over a whole 1408-position cache whose scores rise by ~0.1
+    a T block along the (post-rope, when ``fused``) q rows: the blocks'
+    running maxima lie below the global max.  Returns (the kernel's function,
+    its arguments, its plain version, row 9's arguments that give the same
+    attention: post-rope q and k, raw v)."""
+    b, g, hkv, t_max = 1, 2, 8, 1408
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, hkv * g, 128), generator=gen, device=dev).bfloat16()
+    k_self, v_self = (torch.randn((b, hkv, 128), generator=gen, device=dev).bfloat16()
+                      for _ in range(2))
+    qn, kn = (torch.randn(128, generator=gen, device=dev) for _ in range(2))
+    lens = torch.tensor([t_max], dtype=torch.int32, device=dev)
+    cos, sin = (t[:, 0] for t in tlm._rope_at(lens, 128, 1e6))
+    q_att = tattn.rms_norm_rope(q, qn, cos, sin, 1e-6) if fused else q
+    k_att = tattn.rms_norm_rope(k_self, kn, cos, sin, 1e-6) if fused else k_self
+    qdir = q_att.float().reshape(b, hkv, g, 128).sum(2)
+    qdir = qdir / qdir.norm(dim=-1, keepdim=True)
+    rise = 0.1 * (torch.arange(t_max, device=dev) // tattn.pick_tb(t_max)) * (128 / g) ** 0.5
+    k = torch.randn((1, b, hkv, t_max, 128), generator=gen, device=dev) \
+        + rise[:, None] * qdir[None, :, :, None, :]
+    kq, ks = tkvc.quantize_kv(k)
+    vq, vs = tkvc.quantize_kv(torch.randn((1, b, hkv, t_max, 128), generator=gen, device=dev))
+    att = (q_att, kq, ks, vq, vs, lens, 0, k_att, v_self)
+    if fused:
+        return (tattn.decode_attention_fused_stacked,
+                (q, k_self, v_self, qn, kn, cos, sin, kq, ks, vq, vs, lens, 0),
+                tattn.decode_attention_fused_plain, att)
+    return tattn.decode_attention_int8_stacked, att, tattn.decode_attention_plain, att
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["attn", "fused"])
+def test_global_anchor_misses_the_bound_on_the_card(dev, fused):
+    """On a cache whose scores rise by ~0.1 a T block, each kernel meets
+    TIGHT_REL and the mirror of its phases with the global anchor does not."""
+    fn, args, plain, att = rising_case(dev, fused)
+    ref = plain(*args)
+    got = fn(*args)
+    assert _rel(got[0] if fused else got, ref[0] if fused else ref) <= TIGHT_REL
+    ref = ref[0] if fused else ref
+    assert _rel(tattn.decode_attention_split_mirror(*att), ref) <= TIGHT_REL
+    glob = tattn.decode_attention_split_mirror(*att, anchor="global")
+    assert _rel(glob, ref) > TIGHT_REL, _rel(glob, ref)
+
+
+def test_decode_attn_alternating_caches(dev):
+    """Calls that alternate between caches each get their own checks and plan:
+    every output matches the plain version, and the wrapper keeps at most
+    CACHES caches and PLANS plans (streams) a cache."""
+    inputs = [_attn_inputs((1, 16, 8, 1408, 1, [300 + 7 * i]), dev)[0] for i in range(6)]
+    for rep in range(3):
+        for a in inputs[:2] if rep < 2 else inputs:
+            args = (*a[:6], 0, *a[6:])
+            got = tattn.decode_attention_int8_stacked(*args)
+            assert _rel(got, tattn.decode_attention_plain(*args)) <= TIGHT_REL
+    assert len(tattn._memos) == tattn.CACHES
+    args = (*inputs[0][:6], 0, *inputs[0][6:])
+    want = tattn.decode_attention_int8_stacked(*args)
+    for _ in range(tattn.PLANS + 2):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = tattn.decode_attention_int8_stacked(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        assert torch.equal(got, want)
+    assert len(tattn._memos[0][7]) == tattn.PLANS
+
+
+def test_decode_attn_refusals_raise_before_launch(dev):
+    """Shapes the kernels do not take return None, and bad cache tensors, a bad
+    layer or bad lengths raise, all without a launch; a cache tensor replaced
+    after a good call is checked anew."""
+    case = (1, 16, 8, 1408, 2, [300])
+    (q, kq, ks, vq, vs, lens, k_self, v_self), (qn, kn, cos, sin) = _attn_inputs(case, dev)
+    assert tattn.decode_attention_int8_stacked(q, kq, ks, vq, vs, lens, 0, k_self,
+                                               v_self) is not None
+    counts = (tattn.ATTN.launches, tattn.FUSED.launches)
+    bad = [
+        ((q, kq[..., :96, :], ks[..., :96], vq[..., :96, :], vs[..., :96], lens), None),
+        ((q, kq, ks.double(), vq, vs, lens), ValueError),
+        ((q, kq, ks, vq.mT.contiguous().mT, vs, lens), ValueError),        # not contiguous
+        ((q, kq, ks, vq, vs[..., :-1], lens), ValueError),
+        ((q, kq, ks, vq, vs, lens.long()), ValueError),
+        ((q, kq, ks, vq, vs, lens.repeat(2)), ValueError),
+        ((q, kq.view(torch.uint8), ks, vq, vs, lens), ValueError),
+    ]
+    for (qq, *cache, ln), err in bad:
+        for call in (lambda: tattn.decode_attention_int8_stacked(qq, *cache, ln, 0, k_self,
+                                                                 v_self),
+                     lambda: tattn.decode_attention_fused_stacked(qq, k_self, v_self, qn, kn,
+                                                                  cos, sin, *cache, ln, 0)):
+            if err is None:
+                assert call() is None
+            else:
+                with pytest.raises(err):
+                    call()
+    for li in (-1, 2):
+        with pytest.raises(ValueError, match="layer"):
+            tattn.decode_attention_int8_stacked(q, kq, ks, vq, vs, lens, li, k_self, v_self)
+    with pytest.raises(ValueError, match="ksc"):
+        tattn.decode_attention_int8_stacked(q, kq, ks.cpu(), vq, vs, lens, 0, k_self, v_self)
+    torch.cuda.synchronize()
+    assert (tattn.ATTN.launches, tattn.FUSED.launches) == counts
 
 
 def _mega_case(cfg, b, t_max, seed, dev):
