@@ -9,9 +9,8 @@ checkpoint directory (``serving.launch.build_engine``).  Its hot ops are
 hand-written CUDA C++ kernels for sm_90a (``csrc/*.cu``), built with plain
 ``nvcc`` calls (one per source, in parallel) and loaded with ctypes:
 
-  ops.cuda.qmm          dequant-matmul per quant format (2-D and layer-stacked
-                        weights): q8_0 (csrc/qmm_q8_0.cu), q4_0
-                        (csrc/qmm_q4.cu), q4_k / q6_k (csrc/qmm_kquant.cu)
+  ops.cuda.qmm          dequant-matmul for q8_0, q4_0, q4_k and q6_k (2-D and
+                        layer-stacked weights; csrc/qmm_wgmma.cu)
   ops.cuda.vae_resunit  fused Oobleck residual unit and dilation-1/3/9 trio
 
 Every kernel wrapper runs the kernel for CUDA tensors and its plain PyTorch

@@ -38,7 +38,7 @@
 // (split-K chosen by the wrapper to fill the grid).  K steps of 64: the bf16
 // activation tile and the int8 weight tile with its f32 scales arrive by
 // cp.async (L2, double-buffered), the weights are dequantized in shared memory
-// (f32 multiply, one rounding to bf16, as qmm_q8_0.cu) and the tile product
+// (f32 multiply, one rounding to bf16, as the q8_0 matmul) and the tile product
 // runs on the tensor cores (WMMA bf16 16x16x16, f32 accumulation).  Each
 // unit's partial goes to device scratch; the next stage sums the partials of a
 // value in split order, so reruns are bit-identical and there are no f32

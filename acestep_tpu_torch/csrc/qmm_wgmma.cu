@@ -1,19 +1,23 @@
-// K-quant dequant-matmuls for Hopper (sm_90a): q4_k and q6_k.
+// Dequant-matmuls for Hopper (sm_90a), every quant format on one mainloop:
 //   out[M, N] = x[M, K] (bf16) @ bf16(dequant(W[K, N])) (+ bias)
 // with f32 accumulation; out is bf16 or f32.
-//   q4_k: nib * d - m,  d = f32(super[k/256]) * f32(u8 ls[k/32]),
-//                       m = f32(super_min[k/256]) * f32(u8 lm[k/32])
+//   q8_0: q * d,         q int8,  d = f32 scale[k/32]
+//   q4_0: (nib - 8) * d, d = f32 scale[k/32]
+//   q4_k: nib * d - m,   d = f32(super[k/256]) * f32(u8 ls[k/32]),
+//                        m = f32(super_min[k/256]) * f32(u8 lm[k/32])
 //   q6_k: ((lo | hi << 4) - 32) * d,  d = f32(super[k/256]) * f32(i8 ls[k/16])
 //
-// Replaces the Pallas kernels acestep_tpu/ops/pallas/qmm.py:187 `_q4_k_kernel`
-// and :208 `_q6_k_kernel` (reached through qmm_pallas and, for layer-stacked
-// weights, qmm_pallas_stacked: here layer `li` is read through its base
-// pointers, with no copy).
+// Replaces the Pallas kernels acestep_tpu/ops/pallas/qmm.py:147 `_q8_kernel`,
+// :164 `_q4_0_kernel`, :187 `_q4_k_kernel` and :208 `_q6_k_kernel` (reached
+// through qmm_pallas and, for layer-stacked weights, qmm_pallas_stacked: here
+// layer `li` is read through its base pointers, with no copy).
 //
-// Bound on the H100: at the 60 s decoder's M = 768 patch rows the products are
-// bound by operations (the 2048 x 12288 gate-up product: 38.7 GFLOP = 39 us at
-// 989 TFLOP/s against 12.6 MB of q4_k weights = 3.8 us at 3.35 TB/s); at
-// M <= 64 (text encoder, timestep linears) by bytes.
+// Bound on the H100: at the 60 s decoder's M = 768 patch rows the 4-bit
+// products are bound by operations (the 2048 x 12288 gate-up product: 38.7
+// GFLOP = 39 us at 989 TFLOP/s against 12.6 MB of q4_k weights = 3.8 us at
+// 3.35 TB/s); at the 10 s decoder's M = 128 the q8_0 products by bytes (an
+// int8 byte feeds 256 flops, under the card's ~295), and at M <= 64 every
+// format by bytes.
 //
 // Design.  The product is computed transposed, out^T = W^T x^T, so that the
 // dequantized weight is wgmma's A operand and lives in registers only:
@@ -29,44 +33,62 @@
 //    TMA (two cp.async.bulk.tensor copies a stage from one thread, swizzled by
 //    the copy engine; the tensor map is encoded on the host per launch), the
 //    weight fields by cp.async, 16 bytes a thread.  A stage holds one K step
-//    of 128 rows (half a fold group): the x tile, 64 packed nibble rows,
-//    (q6_k) the fold group's 64 crumb rows, the step's sub-scales (and
-//    sub-mins) and the super scales (and super mins).
+//    of 128 rows: the x tile and the format's fields for those rows (below).
 //  - The dequant runs on the CUDA cores while the tensor cores work: a step's
-//    four slice pairs (16 K rows each, the low and the high nibbles of the
-//    same 16 packed rows) go out as two wgmma groups of four wgmmas, and one
-//    half of the step is dequantized while the other half's group is in
-//    flight (four A register buffers, one per pair; wgmma.wait_group 1).
-//    Each thread owns 2 adjacent weight columns (16 bits of a packed row); d
-//    (and q4_k's m) are computed once per sub-block and column; nibbles
-//    become floats exactly through 0x4B000000 | code (2^23 + code), pairs are
-//    packed with cvt.rn.bf16x2.f32.
+//    four slice pairs (16 K rows of x atom 0 and 16 of atom 1) go out as two
+//    wgmma groups of four wgmmas, and one half of the step is dequantized
+//    while the other half's group is in flight (four A register buffers, one
+//    per pair; wgmma.wait_group 1).  Each thread owns 2 adjacent weight
+//    columns (16 bits of a stage row); the scale factors are read once per
+//    32-row block (16 for q6_k) and column; codes become floats exactly
+//    through 0x4B000000 | code (2^23 + code), pairs are packed with
+//    cvt.rn.bf16x2.f32.
 //  - Small M: BM = 16 (M <= 16) or 64 (M <= 64), and a split over K in whole
-//    fold groups (grid z) when the tiles alone would leave the card half
-//    empty; the splits' f32 partials go to a scratch buffer and one more
-//    kernel adds them in split order (no atomics: reruns are bit-identical).
-//    The plan (BM, splits) is chosen by the caller (ops/cuda/qmm.py
-//    kquant_plan) and checked here.
+//    steps when the tiles alone would leave the card half empty.  The splits
+//    of one tile are one thread-block cluster along grid z: each block parks
+//    its f32 partial tile in its own drained ring, and after a cluster
+//    barrier each block adds its share of the tile's valid rows over the
+//    cluster's blocks, in split order, through distributed shared memory (no
+//    atomics, no scratch in device memory, no second launch: reruns are
+//    bit-identical).  A split is at most 8 blocks (the portable cluster), and
+//    the card holds fewer clusters than its SMs would suggest (a cluster takes
+//    SMs of one GPC: 15 of 8 blocks at one block an SM), so the plan (BM,
+//    splits: ops/cuda/qmm.py wgmma_plan, checked here) asks the card how many
+//    fit (acestep_qmm_clusters) and keeps a launch within one wave of them.
+//    Partials through device memory summed by a second kernel ran 0-3 us
+//    faster on the card at some split shapes, but cost a second launch's host
+//    time at each (PERF.md).
 // Times, rates and what bounds the loop (tools/ablate_qmm_kquant.py builds it
 // without the dequant, and without the x copies too): PERF.md.
 
-// K order.  Step s (0 or 1) of fold group g takes packed nibble rows
-// g*128 + s*64 + i (i < 64): their low nibbles are K rows g*256 + s*64 + i (x
-// atom 0), their high nibbles K rows g*256 + 128 + s*64 + i (x atom 1), so
-// every packed byte is read once per block and each x atom row is 128
-// contiguous bytes.  q6_k's crumb row g*64 + i holds the two bits of K rows
-// g*256 + {0, 64, 128, 192} + i: both steps of a fold group load its 64 crumb
-// rows and use two of the four.  Slice jj (0..3) of an atom is its 32-byte
-// piece jj: packed rows s*64 + 16*jj + [0, 16).
+// K order of a step (128 K rows; x atom a holds 64 of them, slice jj (0..3)
+// of an atom is its 32-byte piece jj: 16 K rows).
+//  - 4-bit formats: step s (0 or 1) of fold group g takes packed nibble rows
+//    g*128 + s*64 + i (i < 64): their low nibbles are K rows g*256 + s*64 + i
+//    (x atom 0), their high nibbles K rows g*256 + 128 + s*64 + i (x atom 1),
+//    so every packed byte is read once per block and each x atom row is 128
+//    contiguous bytes.  q6_k's crumb row g*64 + i holds the two bits of K
+//    rows g*256 + {0, 64, 128, 192} + i: both steps of a fold group load its
+//    64 crumb rows and use two of the four.  Slice pair jj: packed rows
+//    s*64 + 16*jj + [0, 16).
+//  - q8_0: step t takes int8 rows 128t + i (i < 128): K rows 128t + [0, 64)
+//    are x atom 0 (stage rows 0-63), 128t + [64, 128) atom 1 (stage rows
+//    64-127).  Slice pair jj: stage rows 16*jj + [0, 16) and 64 + 16*jj +
+//    [0, 16).  K need only be a multiple of 32: the last step may be partial,
+//    and its rows past K read as zeros (x by the tensor map's out-of-range
+//    fill, the int8 rows and scales by zero-size cp.async copies).
+//  - q8_0 / q4_0 block scales: stage row 2a + e is the f32 scale row of the
+//    32-row block e of x atom a (slice pair jj uses e = jj / 2), as q4_k's
+//    sub-scales and sub-mins.
 //
 // Numerics (as qmm.py:18-19 and the JAX dequantize): dequant in f32 with each
 // multiply and subtract rounded on its own (__fmul_rn / __fsub_rn, so nvcc
 // does not contract them into an FMA), one rounding to bf16, f32
 // accumulation; the bias is added in f32 before the single output rounding.
-// K must be a multiple of 256; ragged M and N are masked.  N % 16 == 0 with
-// 16-byte aligned weight fields takes the cp.async path; any other N loads the
-// weight fields with plain loads into the same layout.  x must be 16-byte
-// aligned (the wrapper guarantees it).
+// K must be a multiple of 256 (4-bit) or 32 (q8_0); ragged M and N are masked.
+// N % 16 == 0 with 16-byte aligned weight fields takes the cp.async path; any
+// other N loads the weight fields with plain loads into the same layout.  x
+// must be 16-byte aligned (the wrapper guarantees it).
 
 #include <cuda.h>            // CUtensorMap (the driver is reached through the runtime)
 #include <cudaTypedefs.h>
@@ -76,37 +98,44 @@
 
 namespace {
 
-constexpr int Q4_K = 1, Q6_K = 2;
+constexpr int Q8_0 = 0, Q4_0 = 1, Q4_K = 2, Q6_K = 3;
 constexpr int FOLD = 256;
+constexpr int STEP = 128;                // K rows per ring stage
 constexpr int TN = 128;                  // weight columns per block
+constexpr int MAX_SPLITS = 8;            // blocks of a cluster (the portable limit)
 constexpr int CONSUMERS = 256;                  // two warpgroups
 constexpr int PRODUCERS = 128;                  // and one producer warpgroup
 constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int PS = TN + 4;               // row stride (floats) of a parked partial tile
 
 struct QArgs {
-  const uint8_t* data;          // [K/2, N] fold-256 nibbles
+  const uint8_t* data;          // q8_0: int8 [K, N]; else [K/2, N] fold-256 nibbles
   const uint8_t* data_hi;       // q6_k: [K/4, N] fold-64 crumbs
   const uint8_t* sub_scales;    // q4_k: uint8 [K/32, N]; q6_k: int8 [K/16, N]
   const uint8_t* sub_mins;      // q4_k: uint8 [K/32, N]
-  const float* super_scales;    // [K/256, N]
+  const float* super_scales;    // q4_k / q6_k: [K/256, N]
   const float* super_mins;      // q4_k: [K/256, N]
+  const float* scales;          // q8_0 / q4_0: [K/32, N]
 };
 
 // shared-memory layout of one ring stage (byte offsets) for blocks of BM x
 // rows (the wgmma width)
 template <int FMT, int BM>
 struct Stage {
+  static constexpr bool BLOCK32 = FMT == Q8_0 || FMT == Q4_0;   // one f32 scale per 32 rows
   static constexpr int X = 0;                                  // 2 atoms x BM rows x 128 B
-  static constexpr int W = X + 2 * BM * 128;                   // 64 packed rows x 128 B
-  static constexpr int HI = W + 64 * TN;                       // q6_k: 64 crumb rows
-  static constexpr int LS = HI + (FMT == Q6_K ? 64 * TN : 0);  // 4 (q6_k: 8) rows x 128 B
-  static constexpr int LM = LS + (FMT == Q6_K ? 8 : 4) * TN;   // q4_k: 4 rows
-  static constexpr int SUP = LM + (FMT == Q4_K ? 4 * TN : 0);  // f32 x 128
-  static constexpr int SMIN = SUP + 4 * TN;                    // q4_k: f32 x 128
+  static constexpr int W = X + 2 * BM * 128;                   // 128 int8 or 64 packed rows x 128 B
+  static constexpr int HI = W + (FMT == Q8_0 ? 128 : 64) * TN; // q6_k: 64 crumb rows
+  static constexpr int LS = HI + (FMT == Q6_K ? 64 * TN : 0);  // q4_k 4, q6_k 8 rows x 128 B
+  static constexpr int LM = LS + (FMT == Q6_K ? 8 : FMT == Q4_K ? 4 : 0) * TN;   // q4_k: 4 rows
+  // f32 x 128: the super scales (k-quants), or the step's 4 block-scale rows
+  static constexpr int SUP = LM + (FMT == Q4_K ? 4 * TN : 0);
+  static constexpr int SMIN = SUP + (BLOCK32 ? 16 : 4) * TN;   // q4_k: f32 x 128
   static constexpr int END = SMIN + (FMT == Q4_K ? 4 * TN : 0);
   static constexpr int BYTES = (END + 1023) / 1024 * 1024;    // atoms stay 1024-aligned
   static constexpr int STAGES = 4;
   static constexpr int SMEM = STAGES * BYTES + 1024;
+  static_assert(BM * PS * 4 <= STAGES * BYTES, "a partial tile fits the drained ring");
 };
 
 // ---------------------------------------------------------------------------
@@ -179,6 +208,32 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// every thread of the cluster (that has not exited) arrives, then waits for the
+// others; the release / acquire order makes shared-memory stores before it
+// visible to the cluster's loads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// 16 bytes at `addr` in the shared memory of block `rank` of the cluster
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -281,8 +336,7 @@ __device__ __forceinline__ uint32_t magic_reg() {
   return m;
 }
 
-// byte C (0..3) of `w` (a value < 2^8) as the float 2^23 + byte, exactly;
-// `m` holds 0x4B000000
+// byte C (0..3) of `w` as the float 2^23 + byte, exactly; `m` holds 0x4B000000
 template <int C>
 __device__ __forceinline__ float magic(uint32_t w, uint32_t m) {
   uint32_t d;
@@ -294,8 +348,8 @@ __device__ __forceinline__ uint32_t lds16(const uint8_t* p) {
   return *reinterpret_cast<const uint16_t*>(p);
 }
 
-// swizzle of a packed (or crumb) stage row: the four lanes of a quad read rows
-// 2q + {0, 1, 8, 9} of a slice, which this spreads over the banks
+// swizzle of a weight (packed, int8 or crumb) stage row: the four lanes of a
+// quad read rows 2q + {0, 1, 8, 9} of a slice, which this spreads over the banks
 __device__ __forceinline__ int wrow(int row, int colb) {
   return row * 128 + ((((colb >> 4) ^ (((row >> 1) & 3) << 1))) << 4) + (colb & 15);
 }
@@ -349,17 +403,28 @@ __global__ void __launch_bounds__(128) wgmma_tile_kernel(const __nv_bfloat16* __
 // ---------------------------------------------------------------------------
 
 // the dequant's per-column factors of the thread's 2 columns, for the low and
-// the high nibbles of one slice pair
+// the high halves (x atoms 0 and 1) of one slice pair
 struct Scales {
   float d_lo[2], d_hi[2];
   float m_lo[2], m_hi[2];   // q4_k mins
 };
 
-// slice pair jj: q4_k's 32-row sub-blocks change every two pairs (stage rows
-// jj/2 and 2 + jj/2), q6_k's 16-row ones every pair (stage rows jj and 4 + jj)
+// slice pair jj: 32-row blocks (q8_0, q4_0 scales; q4_k sub-scales) change
+// every two pairs (stage rows jj/2 and 2 + jj/2), q6_k's 16-row ones every
+// pair (stage rows jj and 4 + jj)
 template <int FMT, int BM>
 __device__ __forceinline__ void load_scales(const uint8_t* sb, int jj, int colb, Scales& s) {
   using L = Stage<FMT, BM>;
+  if constexpr (L::BLOCK32) {
+    const float2 lo = *reinterpret_cast<const float2*>(sb + L::SUP + 4 * ((jj >> 1) * TN + colb));
+    const float2 hi =
+        *reinterpret_cast<const float2*>(sb + L::SUP + 4 * ((2 + (jj >> 1)) * TN + colb));
+    s.d_lo[0] = lo.x;
+    s.d_lo[1] = lo.y;
+    s.d_hi[0] = hi.x;
+    s.d_hi[1] = hi.y;
+    return;
+  }
   const float2 su = *reinterpret_cast<const float2*>(sb + L::SUP + 4 * colb);
   const int row = FMT == Q4_K ? (jj >> 1) : jj;
   const uint32_t ls_lo = lds16(sb + L::LS + row * TN + colb);
@@ -389,22 +454,32 @@ __device__ __forceinline__ void load_scales(const uint8_t* sb, int jj, int colb,
 // the A fragments of slice pair jj: a[0..3] the low slice (x atom 0), a[4..7]
 // the high one (atom 1).  Registers 0-3 of a slice hold (column 0, K 2q and
 // 2q + 1), (column 1, same), (column 0, K 2q + 8 and 2q + 9), (column 1,
-// same) of the thread's 2 columns: packed stage rows 16jj + 2q + {0, 1} and
-// 16jj + 2q + {8, 9}.  `pair` is the step's crumb pair (q6_k: s; the high
-// nibbles take 2 + s).
+// same) of the thread's 2 columns: stage rows 16jj + 2q + {0, 1} and
+// 16jj + 2q + {8, 9} (q8_0's high slice: 64 rows further).  `pair` is the
+// step's crumb pair (q6_k: s; the high nibbles take 2 + s).
 template <int FMT, int BM>
 __device__ __forceinline__ void dequant_pair(const uint8_t* sb, int jj, int q, int colb,
                                              int pair, uint32_t m, const Scales& s,
                                              uint32_t (&a)[8]) {
   using L = Stage<FMT, BM>;
+  // 2^23 + code - OFF is the value before its scale, exactly: q8_0's code is
+  // the int8 byte + 128 (its sign bit flipped), the 4-bit ones the nibble
+  // (q6_k: with its crumb); q4_k subtracts its min after the multiply
+  constexpr float OFF = FMT == Q8_0 ? 8388736.f : FMT == Q4_0 ? 8388616.f
+                        : FMT == Q6_K ? 8388640.f : 8388608.f;
   const int r0 = 16 * jj + 2 * q;
   uint32_t nl[4], nh[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int row = r0 + (e & 1) + 8 * (e >> 1);
     const uint32_t w = lds16(sb + L::W + wrow(row, colb));
-    nl[e] = w & 0x0F0Fu;
-    nh[e] = (w >> 4) & 0x0F0Fu;
+    if (FMT == Q8_0) {
+      nl[e] = w ^ 0x8080u;
+      nh[e] = lds16(sb + L::W + wrow(64 + row, colb)) ^ 0x8080u;
+    } else {
+      nl[e] = w & 0x0F0Fu;
+      nh[e] = (w >> 4) & 0x0F0Fu;
+    }
     if (FMT == Q6_K) {
       const uint32_t cw = lds16(sb + L::HI + wrow(row, colb));
       nl[e] |= ((cw >> (2 * pair)) & 0x0303u) << 4;
@@ -418,12 +493,11 @@ __device__ __forceinline__ void dequant_pair(const uint8_t* sb, int jj, int q, i
     const float fh[2] = {magic<0>(nh[e], m), magic<1>(nh[e], m)};
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
+      lo[e][c] = __fmul_rn(__fsub_rn(fl[c], OFF), s.d_lo[c]);
+      hi[e][c] = __fmul_rn(__fsub_rn(fh[c], OFF), s.d_hi[c]);
       if (FMT == Q4_K) {
-        lo[e][c] = __fsub_rn(__fmul_rn(__fsub_rn(fl[c], 8388608.f), s.d_lo[c]), s.m_lo[c]);
-        hi[e][c] = __fsub_rn(__fmul_rn(__fsub_rn(fh[c], 8388608.f), s.d_hi[c]), s.m_hi[c]);
-      } else {   // 2^23 + code - (2^23 + 32) = code - 32, exactly
-        lo[e][c] = __fmul_rn(__fsub_rn(fl[c], 8388640.f), s.d_lo[c]);
-        hi[e][c] = __fmul_rn(__fsub_rn(fh[c], 8388640.f), s.d_hi[c]);
+        lo[e][c] = __fsub_rn(lo[e][c], s.m_lo[c]);
+        hi[e][c] = __fsub_rn(hi[e][c], s.m_hi[c]);
       }
     }
   }
@@ -438,75 +512,116 @@ __device__ __forceinline__ void dequant_pair(const uint8_t* sb, int jj, int q, i
 }
 
 // one 16-byte chunk of a field's stage rows: stage row rr from global row
-// grow, chunk c (16 columns) at its swizzled place (`swz`: the packed-row
-// swizzle, else none)
+// grow (zeros unless `rok`), chunk c (16 columns) at its swizzled place
+// (`swz`: the weight-row swizzle, else none)
 template <bool VEC>
-__device__ __forceinline__ void load_chunk(uint8_t* dst, const uint8_t* base, int grow, int N,
-                                           int n0, int rr, int c, bool swz) {
+__device__ __forceinline__ void load_chunk(uint8_t* dst, const uint8_t* base, int grow, bool rok,
+                                           int N, int n0, int rr, int c, bool swz) {
   const int gn = n0 + c * 16;
   uint8_t* d = dst + (swz ? wrow(rr, c * 16) : rr * TN + c * 16);
   const uint8_t* src = base + static_cast<size_t>(grow) * N + gn;
   if (VEC) {
-    cp_async16(d, gn < N ? src : base, gn < N);
+    const bool ok = rok && gn < N;
+    cp_async16(d, ok ? src : base, ok);
   } else {
 #pragma unroll 4
-    for (int b = 0; b < 16; ++b) d[b] = gn + b < N ? src[b] : 0;
+    for (int b = 0; b < 16; ++b) d[b] = rok && gn + b < N ? src[b] : 0;
   }
 }
 
-// chunk c (4 floats) of an f32 row of TN columns
+// chunk c (4 floats) of an f32 row of TN columns (zeros unless `rok`)
 template <bool VEC>
-__device__ __forceinline__ void load_f32(uint8_t* dst, const float* base, int grow, int N,
-                                         int n0, int c) {
+__device__ __forceinline__ void load_f32(uint8_t* dst, const float* base, int grow, bool rok,
+                                         int N, int n0, int c) {
   const int gn = n0 + c * 4;
   const float* src = base + static_cast<size_t>(grow) * N + gn;
   float* d = reinterpret_cast<float*>(dst) + c * 4;
   if (VEC) {
-    cp_async16(d, gn < N ? src : base, gn < N);
+    const bool ok = rok && gn < N;
+    cp_async16(d, ok ? src : base, ok);
   } else {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) d[b] = gn + b < N ? src[b] : 0.f;
+    for (int b = 0; b < 4; ++b) d[b] = rok && gn + b < N ? src[b] : 0.f;
   }
 }
 
-// the producer warpgroup: one K step (fold group g, half s) into stage `sb`;
-// producer thread pt (of 128) takes every 128th 16-byte chunk of each field
+// the producer warpgroup: K step ks (4-bit: fold group ks / 2, half ks % 2)
+// into stage `sb`; producer thread pt (of 128) takes every 128th 16-byte chunk
+// of each field
 template <int FMT, int BM, bool VEC>
-__device__ __forceinline__ void fill_stage(uint8_t* sb, const QArgs& qa, int N, int n0, int g,
-                                           int s, int pt) {
+__device__ __forceinline__ void fill_stage(uint8_t* sb, const QArgs& qa, int N, int K, int n0,
+                                           int ks, int pt) {
   using L = Stage<FMT, BM>;
   // (the x tile comes by TMA: see the producer loop)
-  // packed nibbles: stage row R <- packed row g*128 + s*64 + R; (q6_k) crumbs:
-  // stage row R <- crumb row g*64 + R
+  const int g = ks >> 1, s = ks & 1, rr = pt >> 3, c = pt & 7;
+  if (FMT == Q8_0) {
+    // int8 rows: stage row R <- row 128 ks + R; rows past K read as zeros
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = (pt >> 3) + 16 * i;
-    load_chunk<VEC>(sb + L::W, qa.data, g * 128 + s * 64 + rr, N, n0, rr, pt & 7, true);
-    if (FMT == Q6_K)
-      load_chunk<VEC>(sb + L::HI, qa.data_hi, g * 64 + rr, N, n0, rr, pt & 7, true);
+    for (int i = 0; i < 8; ++i) {
+      const int grow = ks * STEP + rr + 16 * i;
+      load_chunk<VEC>(sb + L::W, qa.data, grow, grow < K, N, n0, rr + 16 * i, c, true);
+    }
+  } else {
+    // packed nibbles: stage row R <- packed row g*128 + s*64 + R; (q6_k) crumbs:
+    // stage row R <- crumb row g*64 + R
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      load_chunk<VEC>(sb + L::W, qa.data, g * 128 + s * 64 + rr + 16 * i, true, N, n0,
+                      rr + 16 * i, c, true);
+      if (FMT == Q6_K)
+        load_chunk<VEC>(sb + L::HI, qa.data_hi, g * 64 + rr + 16 * i, true, N, n0,
+                        rr + 16 * i, c, true);
+    }
   }
-  const int rr = pt >> 3, c = pt & 7;
-  if (FMT == Q6_K) {
+  if (L::BLOCK32) {
+    // f32 block scales: stage row j = 2a + e <- the scale row of block e of x
+    // atom a (q8_0: block 4 ks + j; q4_0: g*8 + a*4 + s*2 + e)
+    const int j = pt >> 5;
+    const int brow = FMT == Q8_0 ? ks * 4 + j : g * 8 + (j >> 1) * 4 + s * 2 + (j & 1);
+    load_f32<VEC>(sb + L::SUP + j * TN * 4, qa.scales, brow, brow < K / 32, N, n0, pt & 31);
+  } else if (FMT == Q6_K) {
     // i8 sub-scales: stage row h*4 + jj <- sub-block g*16 + h*8 + s*4 + jj
     if (pt < 64) load_chunk<VEC>(sb + L::LS, qa.sub_scales,
-                                 g * 16 + (rr >> 2) * 8 + s * 4 + (rr & 3), N, n0, rr, c, false);
-    else if (pt < 96) load_f32<VEC>(sb + L::SUP, qa.super_scales, g, N, n0, pt - 64);
+                                 g * 16 + (rr >> 2) * 8 + s * 4 + (rr & 3), true, N, n0, rr, c,
+                                 false);
+    else if (pt < 96) load_f32<VEC>(sb + L::SUP, qa.super_scales, g, true, N, n0, pt - 64);
   } else {
     // u8 sub-scales and sub-mins: stage row h*2 + e <- sub-block g*8 + h*4 + s*2 + e
     const int sub = g * 8 + ((rr & 3) >> 1) * 4 + s * 2 + (rr & 1);
-    if (pt < 32) load_chunk<VEC>(sb + L::LS, qa.sub_scales, sub, N, n0, rr & 3, c, false);
-    else if (pt < 64) load_chunk<VEC>(sb + L::LM, qa.sub_mins, sub, N, n0, rr & 3, c, false);
-    else if (pt < 96) load_f32<VEC>(sb + L::SUP, qa.super_scales, g, N, n0, pt - 64);
-    else load_f32<VEC>(sb + L::SMIN, qa.super_mins, g, N, n0, pt - 96);
+    if (pt < 32) load_chunk<VEC>(sb + L::LS, qa.sub_scales, sub, true, N, n0, rr & 3, c, false);
+    else if (pt < 64) load_chunk<VEC>(sb + L::LM, qa.sub_mins, sub, true, N, n0, rr & 3, c, false);
+    else if (pt < 96) load_f32<VEC>(sb + L::SUP, qa.super_scales, g, true, N, n0, pt - 64);
+    else load_f32<VEC>(sb + L::SMIN, qa.super_mins, g, true, N, n0, pt - 96);
+  }
+}
+
+// one output value pair (columns gn, gn + 1 of row gm) with the bias added
+__device__ __forceinline__ void store_pair(void* out, int out_bf16, int gm, int gn, int N,
+                                           bool vec2, float v0, float v1) {
+  if (out_bf16) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + static_cast<size_t>(gm) * N + gn;
+    if (vec2) {
+      *reinterpret_cast<uint32_t*>(o) = pack_bf16(v0, v1);
+    } else {
+      if (gn < N) o[0] = __float2bfloat16(v0);
+      if (gn + 1 < N) o[1] = __float2bfloat16(v1);
+    }
+  } else {
+    float* o = static_cast<float*>(out) + static_cast<size_t>(gm) * N + gn;
+    if (vec2) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      if (gn < N) o[0] = v0;
+      if (gn + 1 < N) o[1] = v1;
+    }
   }
 }
 
 template <int FMT, int BM, bool VEC>
 __global__ void __launch_bounds__(THREADS, BM == 16 ? 2 : 1)
-kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
-              const float* __restrict__ bias, void* __restrict__ out,
-              float* __restrict__ partial, int M, int N, int K, int out_bf16,
-              int steps_per_split) {
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
+                 const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
+                 int out_bf16, int steps_per_split) {
   using L = Stage<FMT, BM>;
   constexpr int NA = BM / 2;                       // accumulators per thread
   extern __shared__ uint8_t smem_raw[];
@@ -515,8 +630,8 @@ kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
 
   const int n0 = blockIdx.x * TN, m0 = blockIdx.y * BM;
   const int step0 = blockIdx.z * steps_per_split;
-  const int nsteps = min(steps_per_split, 2 * (K / FOLD) - step0);
-
+  const int nsteps = min(steps_per_split, (K + STEP - 1) / STEP - step0);
+  const bool split = gridDim.z > 1;                // a cluster of the K splits
   if (threadIdx.x == 0) {
     for (int i = 0; i < L::STAGES; ++i) {
       mbar_init(&full[i], PRODUCERS + 1);    // + the x tile's transaction count
@@ -535,20 +650,24 @@ kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
       const int ks = step0 + it;
       uint8_t* sb = smem + st * L::BYTES;
       if (pt == 0) {
-        // x: two atoms of BM rows x 64 K columns, K rows g*256 + a*128 + s*64 +
-        // [0, 64) of atom a, swizzled by the copy engine; rows past M read 0
+        // x: two atoms of BM rows x 64 K columns (the step's K order, above),
+        // swizzled by the copy engine; rows past M and columns past K read 0
         mbar_expect_tx(&full[st], 2 * BM * 128);
-        const int k0 = (ks >> 1) * FOLD + (ks & 1) * 64;
+        const int k0 = FMT == Q8_0 ? ks * STEP : (ks >> 1) * FOLD + (ks & 1) * 64;
         tma_load_2d(sb + L::X, &xmap, k0, m0, &full[st]);
-        tma_load_2d(sb + L::X + BM * 128, &xmap, k0 + 128, m0, &full[st]);
+        tma_load_2d(sb + L::X + BM * 128, &xmap, k0 + (FMT == Q8_0 ? 64 : 128), m0, &full[st]);
       }
-      fill_stage<FMT, BM, VEC>(sb, qa, N, n0, ks >> 1, ks & 1, pt);
+      fill_stage<FMT, BM, VEC>(sb, qa, N, K, n0, ks, pt);
       if (VEC) {
         cp_async_arrive(&full[st]);
       } else {
         fence_proxy_async();           // plain stores, read by wgmma
         mbar_arrive(&full[st]);
       }
+    }
+    if (split) {                       // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -584,7 +703,7 @@ kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
     for (int h = 0; h < 2; ++h) {
       wgmma_fence();
 #pragma unroll
-      for (int jj = 2 * h; jj < 2 * h + 2; ++jj) {   // x atom 0: low nibbles, atom 1: high
+      for (int jj = 2 * h; jj < 2 * h + 2; ++jj) {   // x atom 0: low slices, atom 1: high
         wgmma_rs(acc, a[jj], kmajor_sw128_desc(xaddr + 32 * jj));
         wgmma_rs(acc, a[jj] + 4, kmajor_sw128_desc(xaddr + BM * 128 + 32 * jj));
       }
@@ -614,10 +733,58 @@ kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
 
   // thread's outputs: x row (i >> 2)*8 + 2q + (i & 1), columns colb and
   // colb + 1 = (acc[i], acc[i + 2]) for the i with (i >> 1) & 1 == 0
+  if (split) {
+    // park the partial tile [BM x rows][TN columns] in the drained ring (both
+    // warpgroups' wgmmas have read their last x tiles), then add this block's
+    // share of the tile's valid rows over the cluster's blocks in split order
+    float* part = reinterpret_cast<float*>(smem);
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      if ((i >> 1) & 1) continue;
+      const int row = (i >> 2) * 8 + 2 * q + (i & 1);
+      *reinterpret_cast<float2*>(part + row * PS + colb) = make_float2(acc[i], acc[i + 2]);
+    }
+    cluster_sync();
+    const int splits = gridDim.z, rank = static_cast<int>(cluster_rank());
+    const int chunks = min(BM, M - m0) * (TN / 4);   // float4 chunks of the valid rows
+    const int per = (chunks + splits - 1) / splits;
+    const int end = min(chunks, (rank + 1) * per);
+    const bool vec4 = (N & 3) == 0;
+    for (int e = rank * per + threadIdx.x; e < end; e += CONSUMERS) {
+      const int row = e / (TN / 4), c4 = e % (TN / 4);
+      const int gm = m0 + row, gn = n0 + 4 * c4;
+      if (gn >= N) continue;
+      const uint32_t addr = smem_u32(part + row * PS + 4 * c4);
+      float4 p[MAX_SPLITS];
+#pragma unroll
+      for (int z = 0; z < MAX_SPLITS; ++z)
+        if (z < splits) p[z] = ld_cluster(addr, z);
+      float4 v = p[0];
+#pragma unroll
+      for (int z = 1; z < MAX_SPLITS; ++z) {
+        if (z < splits) {
+          v.x += p[z].x;
+          v.y += p[z].y;
+          v.z += p[z].z;
+          v.w += p[z].w;
+        }
+      }
+      float vals[4] = {v.x, v.y, v.z, v.w};
+      if (bias != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vals[c] += gn + c < N ? bias[gn + c] : 0.f;
+      }
+      store_pair(out, out_bf16, gm, gn, N, vec4, vals[0], vals[1]);
+      store_pair(out, out_bf16, gm, gn + 2, N, vec4, vals[2], vals[3]);
+    }
+    cluster_sync();                    // no block leaves while its tile is read
+    return;
+  }
   const int gn = n0 + colb;
   const bool vec2 = (N & 1) == 0 && gn + 1 < N;
   float b2[2] = {0.f, 0.f};
-  if (bias != nullptr && partial == nullptr) {
+  if (bias != nullptr) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) b2[c] = gn + c < N ? bias[gn + c] : 0.f;
   }
@@ -626,48 +793,7 @@ kquant_kernel(const __grid_constant__ CUtensorMap xmap, const QArgs qa,
     if ((i >> 1) & 1) continue;
     const int gm = m0 + (i >> 2) * 8 + 2 * q + (i & 1);
     if (gm >= M) continue;
-    const float v0 = acc[i] + b2[0], v1 = acc[i + 2] + b2[1];
-    if (partial != nullptr) {
-      float* p = partial + (static_cast<size_t>(blockIdx.z) * M + gm) * N + gn;
-      if (vec2) {
-        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-      } else {
-        if (gn < N) p[0] = v0;
-        if (gn + 1 < N) p[1] = v1;
-      }
-    } else if (out_bf16) {
-      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + static_cast<size_t>(gm) * N + gn;
-      if (vec2) {
-        *reinterpret_cast<uint32_t*>(o) = pack_bf16(v0, v1);
-      } else {
-        if (gn < N) o[0] = __float2bfloat16(v0);
-        if (gn + 1 < N) o[1] = __float2bfloat16(v1);
-      }
-    } else {
-      float* o = static_cast<float*>(out) + static_cast<size_t>(gm) * N + gn;
-      if (vec2) {
-        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-      } else {
-        if (gn < N) o[0] = v0;
-        if (gn + 1 < N) o[1] = v1;
-      }
-    }
-  }
-}
-
-// the K splits' partial sums [splits, M, N] added in split order (+ bias)
-__global__ void __launch_bounds__(256) split_sum_kernel(const float* __restrict__ partial,
-                                                        const float* __restrict__ bias,
-                                                        void* __restrict__ out, int M, int N,
-                                                        int splits, int out_bf16) {
-  const size_t total = static_cast<size_t>(M) * N;
-  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < total;
-       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = partial[e];
-    for (int s = 1; s < splits; ++s) v += partial[s * total + e];
-    if (bias != nullptr) v += bias[e % N];
-    if (out_bf16) static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16(v);
-    else static_cast<float*>(out)[e] = v;
+    store_pair(out, out_bf16, gm, gn, N, vec2, acc[i] + b2[0], acc[i + 2] + b2[1]);
   }
 }
 
@@ -687,13 +813,27 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// sets the kernel's shared-memory limit once (per process: the port runs on one card)
+template <int FMT, int BM, bool VEC>
+cudaError_t prepare() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_wgmma_kernel<FMT, BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Stage<FMT, BM>::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  return cudaSuccess;
+}
+
 template <int FMT, int BM, bool VEC>
 cudaError_t launch_bm(const __nv_bfloat16* x, const QArgs& qa, const float* bias, void* out,
-                      float* partial, int M, int N, int K, int out_bf16, int splits,
-                      int steps_per_split, cudaStream_t stream) {
+                      int M, int N, int K, int out_bf16, int splits, int steps_per_split,
+                      cudaStream_t stream) {
   using L = Stage<FMT, BM>;
   // x [M, K] as a 2-D tensor map: boxes of 64 K columns (128 bytes) x BM rows,
-  // 128-byte swizzle, rows past M read as zeros
+  // 128-byte swizzle, rows past M and columns past K read as zeros
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap xmap;
@@ -705,97 +845,164 @@ cudaError_t launch_bm(const __nv_bfloat16* x, const QArgs& qa, const float* bias
              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kquant_kernel<FMT, BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const cudaError_t err = prepare<FMT, BM, VEC>();
+  if (err != cudaSuccess) return err;
   const dim3 grid((N + TN - 1) / TN, (M + BM - 1) / BM, splits);
-  kquant_kernel<FMT, BM, VEC><<<grid, THREADS, L::SMEM, stream>>>(
-      xmap, qa, bias, out, partial, M, N, K, out_bf16, steps_per_split);
-  return cudaSuccess;
+  if (splits == 1) {
+    qmm_wgmma_kernel<FMT, BM, VEC><<<grid, THREADS, L::SMEM, stream>>>(
+        xmap, qa, bias, out, M, N, K, out_bf16, steps_per_split);
+    return cudaSuccess;
+  }
+  // the K splits of a tile: one cluster along grid z
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, qmm_wgmma_kernel<FMT, BM, VEC>, xmap, qa, bias, out, M, N,
+                            K, out_bf16, steps_per_split);
+}
+
+// clusters of `splits` blocks at BM x rows the card holds at once (<= 0: the
+// query failed)
+template <int FMT, int BM>
+int clusters_bm(int splits) {
+  if (prepare<FMT, BM, true>() != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Stage<FMT, BM>::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, qmm_wgmma_kernel<FMT, BM, true>, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
+}
+
+template <int FMT>
+int clusters_fmt(int bm, int splits) {
+  if (splits < 1 || splits > MAX_SPLITS) return -1;
+  return bm == 16 ? clusters_bm<FMT, 16>(splits)
+         : bm == 64 ? clusters_bm<FMT, 64>(splits)
+         : bm == 128 ? clusters_bm<FMT, 128>(splits) : -1;
 }
 
 template <int FMT, int BM>
 cudaError_t launch_vec(bool vec, const __nv_bfloat16* x, const QArgs& qa, const float* bias,
-                       void* out, float* partial, int M, int N, int K, int out_bf16,
-                       int splits, int steps_per_split, cudaStream_t stream) {
-  return vec ? launch_bm<FMT, BM, true>(x, qa, bias, out, partial, M, N, K, out_bf16, splits,
+                       void* out, int M, int N, int K, int out_bf16, int splits,
+                       int steps_per_split, cudaStream_t stream) {
+  return vec ? launch_bm<FMT, BM, true>(x, qa, bias, out, M, N, K, out_bf16, splits,
                                         steps_per_split, stream)
-             : launch_bm<FMT, BM, false>(x, qa, bias, out, partial, M, N, K, out_bf16, splits,
+             : launch_bm<FMT, BM, false>(x, qa, bias, out, M, N, K, out_bf16, splits,
                                          steps_per_split, stream);
 }
 
 template <int FMT>
-int launch(const void* xv, const QArgs& qa, const void* biasv, void* out, void* scratch, int M,
-           int N, int K, int out_bf16, int bm, int splits, void* stream) {
-  const int groups = K / FOLD;
-  if (K <= 0 || K % FOLD != 0 || M < 0 || N <= 0 || splits < 1 || splits > groups ||
-      (bm != 16 && bm != 64 && bm != 128) || !aligned16(xv) ||
-      (splits > 1 && scratch == nullptr))
+int launch(const void* xv, const QArgs& qa, const void* biasv, void* out, int M, int N, int K,
+           int out_bf16, int bm, int splits, void* stream) {
+  const int align = FMT == Q8_0 ? 32 : FOLD;
+  const int steps = (K + STEP - 1) / STEP;
+  if (K <= 0 || K % align != 0 || M < 0 || N <= 0 || splits < 1 || splits > steps ||
+      splits > MAX_SPLITS || (bm != 16 && bm != 64 && bm != 128) || !aligned16(xv))
     return static_cast<int>(cudaErrorInvalidValue);
-  // whole fold groups per split, every split non-empty
-  const int per = (groups + splits - 1) / splits;
-  if ((groups + per - 1) / per != splits) return static_cast<int>(cudaErrorInvalidValue);
+  // whole steps per split, every split non-empty
+  const int per = (steps + splits - 1) / splits;
+  if ((steps + per - 1) / per != splits) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
   const auto* x = static_cast<const __nv_bfloat16*>(xv);
   const auto* bias = static_cast<const float*>(biasv);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* partial = splits > 1 ? static_cast<float*>(scratch) : nullptr;
   const void* ptrs[] = {qa.data, qa.data_hi, qa.sub_scales, qa.sub_mins, qa.super_scales,
-                        qa.super_mins};
+                        qa.super_mins, qa.scales};
   bool vec = N % 16 == 0;
   for (const void* p : ptrs) vec = vec && aligned16(p);      // null pointers pass
-  cudaError_t err;
-  if (bm == 16)
-    err = launch_vec<FMT, 16>(vec, x, qa, bias, out, partial, M, N, K, out_bf16, splits,
-                              2 * per, s);
-  else if (bm == 64)
-    err = launch_vec<FMT, 64>(vec, x, qa, bias, out, partial, M, N, K, out_bf16, splits,
-                              2 * per, s);
-  else
-    err = launch_vec<FMT, 128>(vec, x, qa, bias, out, partial, M, N, K, out_bf16, splits,
-                               2 * per, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t total = static_cast<size_t>(M) * N;
-    const size_t want = (total + 255) / 256;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    split_sum_kernel<<<blocks, 256, 0, s>>>(partial, bias, out, M, N, splits, out_bf16);
+  const auto run = bm == 16 ? launch_vec<FMT, 16> : bm == 64 ? launch_vec<FMT, 64>
+                                                               : launch_vec<FMT, 128>;
+  const cudaError_t err = run(vec, x, qa, bias, out, M, N, K, out_bf16, splits, per, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();        // a refused launch is not sticky: clear it, report it
+    return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int acestep_qmm_q4_k(const void* x, const void* data, const void* sub_scales,
-                                const void* sub_mins, const void* super_scales,
-                                const void* super_mins, const void* bias, void* out,
-                                void* scratch, int M, int N, int K, int out_bf16, int bm,
-                                int splits, void* stream) {
+// One call: an array of 8-byte slots (one argument, so the host's cost of a
+// call stays small): format (0..3: q8_0, q4_0, q4_k, q6_k), x, the format's
+// field pointers in the order of ops/cuda/qmm.py's KERNELS (q8_0 / q4_0: data,
+// scales; q4_k: data, sub_scales, sub_mins, super_scales, super_mins; q6_k:
+// data, data_hi, sub_scales, super_scales), then bias (0: none), out, M, N, K,
+// out_bf16, bm, splits, stream.
+extern "C" int acestep_qmm(const int64_t* slots) {
+  const int fmt = static_cast<int>(slots[0]);
+  const auto ptr = [&](int i) { return reinterpret_cast<const void*>(slots[i]); };
   QArgs a{};
-  a.data = static_cast<const uint8_t*>(data);
-  a.sub_scales = static_cast<const uint8_t*>(sub_scales);
-  a.sub_mins = static_cast<const uint8_t*>(sub_mins);
-  a.super_scales = static_cast<const float*>(super_scales);
-  a.super_mins = static_cast<const float*>(super_mins);
-  return launch<Q4_K>(x, a, bias, out, scratch, M, N, K, out_bf16, bm, splits, stream);
+  a.data = static_cast<const uint8_t*>(ptr(2));
+  int next = 4;                            // the slot after the format's fields
+  switch (fmt) {
+    case Q8_0:
+    case Q4_0:
+      a.scales = static_cast<const float*>(ptr(3));
+      break;
+    case Q4_K:
+      a.sub_scales = static_cast<const uint8_t*>(ptr(3));
+      a.sub_mins = static_cast<const uint8_t*>(ptr(4));
+      a.super_scales = static_cast<const float*>(ptr(5));
+      a.super_mins = static_cast<const float*>(ptr(6));
+      next = 7;
+      break;
+    case Q6_K:
+      a.data_hi = static_cast<const uint8_t*>(ptr(3));
+      a.sub_scales = static_cast<const uint8_t*>(ptr(4));
+      a.super_scales = static_cast<const float*>(ptr(5));
+      next = 6;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t* r = slots + next;
+  const void* x = ptr(1);
+  const void* bias = reinterpret_cast<const void*>(r[0]);
+  void* out = reinterpret_cast<void*>(r[1]);
+  const int M = static_cast<int>(r[2]), N = static_cast<int>(r[3]), K = static_cast<int>(r[4]);
+  const int out_bf16 = static_cast<int>(r[5]), bm = static_cast<int>(r[6]);
+  const int splits = static_cast<int>(r[7]);
+  void* stream = reinterpret_cast<void*>(r[8]);
+  switch (fmt) {
+    case Q8_0: return launch<Q8_0>(x, a, bias, out, M, N, K, out_bf16, bm, splits, stream);
+    case Q4_0: return launch<Q4_0>(x, a, bias, out, M, N, K, out_bf16, bm, splits, stream);
+    case Q4_K: return launch<Q4_K>(x, a, bias, out, M, N, K, out_bf16, bm, splits, stream);
+    default: return launch<Q6_K>(x, a, bias, out, M, N, K, out_bf16, bm, splits, stream);
+  }
 }
 
-extern "C" int acestep_qmm_q6_k(const void* x, const void* data, const void* data_hi,
-                                const void* sub_scales, const void* super_scales,
-                                const void* bias, void* out, void* scratch, int M, int N,
-                                int K, int out_bf16, int bm, int splits, void* stream) {
-  QArgs a{};
-  a.data = static_cast<const uint8_t*>(data);
-  a.data_hi = static_cast<const uint8_t*>(data_hi);
-  a.sub_scales = static_cast<const uint8_t*>(sub_scales);
-  a.super_scales = static_cast<const float*>(super_scales);
-  return launch<Q6_K>(x, a, bias, out, scratch, M, N, K, out_bf16, bm, splits, stream);
+// how many clusters of `splits` blocks of the format's kernel at `bm` x rows
+// the card holds at once (format 0..3: q8_0, q4_0, q4_k, q6_k; <= 0: the query
+// failed): the plan keeps a split launch within one wave of them
+extern "C" int acestep_qmm_clusters(int fmt, int bm, int splits) {
+  switch (fmt) {
+    case Q8_0: return clusters_fmt<Q8_0>(bm, splits);
+    case Q4_0: return clusters_fmt<Q4_0>(bm, splits);
+    case Q4_K: return clusters_fmt<Q4_K>(bm, splits);
+    case Q6_K: return clusters_fmt<Q6_K>(bm, splits);
+    default: return -1;
+  }
 }
 
 // out[64, 128] (f32) = a[64, 64] (bf16) @ b[128, 64]^T (bf16): one warpgroup

@@ -44,16 +44,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
-    # x, w, scales, bias, out, M, N, K, out_bf16, stream
-    "acestep_qmm_q8_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, data, scales, bias, out, M, N, K, out_bf16, stream
-    "acestep_qmm_q4_0": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, data, sub_scales, sub_mins, super_scales, super_mins, bias, out, scratch,
-    # M, N, K, out_bf16, bm, splits, stream
-    "acestep_qmm_q4_k": [_P] * 9 + [_I] * 6 + [_P],
-    # x, data, data_hi, sub_scales, super_scales, bias, out, scratch, M, N, K,
-    # out_bf16, bm, splits, stream
-    "acestep_qmm_q6_k": [_P] * 8 + [_I] * 6 + [_P],
+    # one pointer to the call's 8-byte slots (csrc/qmm_wgmma.cu: acestep_qmm)
+    "acestep_qmm": [_P],
+    # (format 0..3, bm, splits) -> clusters the card holds at once (<= 0: failed)
+    "acestep_qmm_clusters": [_I] * 3,
     # a, b, out, stream
     "acestep_wgmma_tile_check": [_P] * 4,
     # x, w1, b1, w2, b2, a1, be1, a2, be2, out, N, L, C, dilation, stream

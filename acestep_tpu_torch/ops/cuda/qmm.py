@@ -1,23 +1,23 @@
-"""Dequant-matmuls for every quant format: CUDA kernel wrappers, their plain
+"""Dequant-matmuls for every quant format: the CUDA kernel wrapper, its plain
 PyTorch version and the 2-D / n-D / layer-stacked entry points.
 
-Kernels (hand-written for sm_90a, bf16 tensor cores, f32 accumulation):
+One kernel source, hand-written for sm_90a (csrc/qmm_wgmma.cu: bf16 wgmma with
+the dequantized weight as the register A operand, x by TMA into a ring of
+shared-memory stages, f32 accumulation), one dequant step per format:
 
-  q8_0  csrc/qmm_q8_0.cu    replaces acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel
-  q4_0  csrc/qmm_q4.cu      replaces qmm.py:164 _q4_0_kernel
-  q4_k  csrc/qmm_kquant.cu  replaces qmm.py:187 _q4_k_kernel
-  q6_k  csrc/qmm_kquant.cu  replaces qmm.py:208 _q6_k_kernel
+  q8_0  replaces acestep_tpu/ops/pallas/qmm.py:147 _q8_kernel
+  q4_0  replaces qmm.py:164 _q4_0_kernel
+  q4_k  replaces qmm.py:187 _q4_k_kernel
+  q6_k  replaces qmm.py:208 _q6_k_kernel
 
-(q8_0 and q4_0 on WMMA; q4_k and q6_k on wgmma with a cp.async ring, their
-tile height and K split chosen per shape by :func:`kquant_plan`)
-
-each reached through ``qmm_pallas`` / ``qmm_pallas_nd`` and, for the DiT's
+Its tile height and K split are chosen per shape by :func:`wgmma_plan`.  Each
+is reached through ``qmm_pallas`` / ``qmm_pallas_nd`` and, for the DiT's
 layer-stacked weights, ``qmm_pallas_stacked`` (scalar-prefetched layer index):
 here the stacked form passes the base pointers of layer ``li`` to the same
 kernel (:func:`field_ptrs`: base plus ``li`` layer strides, checked once per
-weight object), so no per-layer weight copy, nor view, is made either.  Every kernel streams the
-quantized fields as stored and dequantizes them in shared memory, so device
-memory never holds a bf16 copy of W.
+weight object), so no per-layer weight copy, nor view, is made either.  The
+kernel streams the quantized fields as stored and dequantizes them in
+registers, so device memory never holds a bf16 copy of W.
 
 With ``int8_act`` (the JAX package's ``ACESTEP_TPU_INT8_ACT=1``), the n-D and
 stacked entry points send a q8_0 weight with a flattened M of at most 16 to
@@ -33,7 +33,7 @@ Numerics (the JAX package's, qmm.py:18-19): dequant in f32, one rounding to
 bf16, f32 accumulation; the bias is added in f32 before the one output rounding.
 
 Dispatch on ``qt.fmt``: a CPU tensor takes :func:`qmm_plain`; a CUDA tensor
-launches the format's kernel or raises.  Each kernel has its own entry in
+launches the format's kernel or raises.  Each format has its own entry in
 :data:`KERNELS`: ``launches`` counts its launches, ``shapes`` counts them by
 ``(M, K, N)``, so a run can show which kernels and shapes its path used.
 """
@@ -44,6 +44,7 @@ import dataclasses
 import functools
 import math
 import operator
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -55,74 +56,94 @@ from acestep_tpu_torch.quant import BLOCK, FOLD, SUB16, SUPER, QuantTensor, dequ
 
 @dataclasses.dataclass(kw_only=True)
 class Kernel(_build.Counted):
-    """One format's kernel: its counts (``Counted``) and its C entry point."""
+    """One format's kernel: its counts (``Counted``), its number in the C
+    entry point's slots and the fields it reads."""
 
-    entry: str
-    # (field, dtype, K rows per stored row) in the entry point's argument order
+    fmt_id: int
+    # (field, dtype, K rows per stored row) in the slots' order
     fields: tuple
+
+    def __post_init__(self):
+        self.getter = operator.attrgetter(*(f for f, _, _ in self.fields))
+        # format, x, the fields, bias, out, M, N, K, out_bf16, bm, splits, stream
+        self.slots = struct.Struct(f"<{len(self.fields) + 11}q")
 
 
 _U8, _I8, _F32 = torch.uint8, torch.int8, torch.float32
-_Q4_SRC = "acestep_tpu_torch/csrc/qmm_q4.cu"
-_KQ_SRC = "acestep_tpu_torch/csrc/qmm_kquant.cu"
+_SRC = "acestep_tpu_torch/csrc/qmm_wgmma.cu"
+_PALLAS = "acestep_tpu/ops/pallas/qmm.py"
 KERNELS = {
-    "q8_0": Kernel("q8_0_qmm", "acestep_tpu_torch/csrc/qmm_q8_0.cu",
-                   "acestep_tpu/ops/pallas/qmm.py:147", entry="acestep_qmm_q8_0",
+    "q8_0": Kernel("q8_0_qmm", _SRC, f"{_PALLAS}:147", fmt_id=0,
                    fields=(("data", _I8, 1), ("scales", _F32, BLOCK))),
-    "q4_0": Kernel("q4_0_qmm", _Q4_SRC, "acestep_tpu/ops/pallas/qmm.py:164",
-                   entry="acestep_qmm_q4_0",
+    "q4_0": Kernel("q4_0_qmm", _SRC, f"{_PALLAS}:164", fmt_id=1,
                    fields=(("data", _U8, 2), ("scales", _F32, BLOCK))),
-    "q4_k": Kernel("q4_k_qmm", _KQ_SRC, "acestep_tpu/ops/pallas/qmm.py:187",
-                   entry="acestep_qmm_q4_k",
+    "q4_k": Kernel("q4_k_qmm", _SRC, f"{_PALLAS}:187", fmt_id=2,
                    fields=(("data", _U8, 2), ("sub_scales", _U8, BLOCK),
                            ("sub_mins", _U8, BLOCK), ("super_scales", _F32, SUPER),
                            ("super_mins", _F32, SUPER))),
-    "q6_k": Kernel("q6_k_qmm", _KQ_SRC, "acestep_tpu/ops/pallas/qmm.py:208",
-                   entry="acestep_qmm_q6_k",
+    "q6_k": Kernel("q6_k_qmm", _SRC, f"{_PALLAS}:208", fmt_id=3,
                    fields=(("data", _U8, 2), ("data_hi", _U8, 4), ("sub_scales", _I8, SUB16),
                            ("super_scales", _F32, SUPER))),
 }
+# K a multiple of this, per format (the fold-256 packing of the 4-bit ones)
+K_ALIGN = {"q8_0": BLOCK, "q4_0": FOLD, "q4_k": FOLD, "q6_k": FOLD}
 
-
-# the K-quant kernels (csrc/qmm_kquant.cu): blocks of KQ_TN weight columns and
-# BM x rows, each K split a run of whole fold groups
-KQUANT = ("q4_k", "q6_k")
-KQ_TN = 128
+# the kernel's blocks: TILE_N weight columns and BM x rows, over K in steps of
+# STEP rows; the K splits of a tile are one thread-block cluster
+TILE_N = 128
+STEP = 128
+MAX_SPLITS = 8             # the portable cluster size
 SMS = 132                  # streaming multiprocessors of one H100 SXM
 
 
+def ideal_clusters(fmt: str, bm: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks the card would hold at once if any SMs
+    could form one: the blocks an SM holds (two at BM = 16, else one) times
+    SMS, over ``splits``."""
+    return (2 if bm == 16 else 1) * SMS // splits
+
+
 @functools.lru_cache(maxsize=None)
-def kquant_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """``(bm, splits)`` of the q4_k / q6_k kernels for ``x [m, k] @ W [k, n]``:
+def device_clusters(fmt: str, bm: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks of the format's kernel at ``bm`` x rows
+    that the card holds at once (cudaOccupancyMaxActiveClusters): a cluster
+    takes SMs of one GPC, so fewer than :func:`ideal_clusters` can fit."""
+    n = _build.lib().acestep_qmm_clusters(KERNELS[fmt].fmt_id, bm, splits)
+    if n <= 0:
+        raise RuntimeError(f"qmm: no cluster of {splits} {fmt} blocks (bm {bm}) fits the card")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(fmt: str, m: int, k: int, n: int,
+               clusters=ideal_clusters) -> Tuple[int, int]:
+    """``(bm, splits)`` of the kernel for ``x [m, k] @ W [k, n]`` in ``fmt``:
     ``bm`` x rows per block (16, 64 or 128: the wgmma width) and the number of
     K splits.  The tiles alone fill the card at the decoder's M; where they
     would leave more than half of the SMs idle (small M: bound by bytes), K is
-    split in whole fold groups until about one block per SM streams the
-    weight."""
-    if m < 1 or n < 1 or k < FOLD or k % FOLD:
-        raise ValueError(f"kquant_plan: no plan for x [{m}, {k}] @ W [{k}, {n}] "
-                         f"(M, N >= 1, K a positive multiple of {FOLD})")
+    split in whole steps, every split non-empty, at most MAX_SPLITS a tile and
+    one block per SM in all.  The splits of a tile are one cluster that adds
+    their partial tiles in its blocks' shared memory (no bytes beside the
+    weight's, no second launch).  Of the split counts, the plan takes the one
+    whose blocks run the fewest steps one after the other: steps per split
+    times the waves in which the card runs the tiles' clusters
+    (``clusters(fmt, bm, splits)`` at once), the fewest splits among equals."""
+    align = K_ALIGN.get(fmt)
+    if align is None or m < 1 or n < 1 or k < align or k % align:
+        raise ValueError(f"wgmma_plan: no plan for x [{m}, {k}] @ {fmt} W [{k}, {n}] "
+                         f"(M, N >= 1, K a positive multiple of {align})")
     bm = 16 if m <= 16 else 64 if m <= 64 else 128
-    tiles = math.ceil(n / KQ_TN) * math.ceil(m / bm)
-    groups = k // FOLD
-    splits = 1
-    if tiles <= SMS // 2:
-        splits = min(groups, SMS // tiles)
-        splits = math.ceil(groups / math.ceil(groups / splits))   # none left empty
-    return bm, splits
-
-
-# the K splits' f32 partial sums, one buffer per (device, stream), grown as
-# needed: the launches of one stream run in order, so they can share it
-_split_scratch = {}
-
-
-def _scratch(device: torch.device, stream: int, numel: int) -> torch.Tensor:
-    buf = _split_scratch.get((device, stream))
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.float32, device=device)
-        _split_scratch[(device, stream)] = buf
-    return buf
+    tiles = math.ceil(n / TILE_N) * math.ceil(m / bm)
+    steps = math.ceil(k / STEP)
+    if tiles > SMS // 2:
+        return bm, 1
+    best = (steps, 1)
+    for splits in range(2, min(steps, SMS // tiles, MAX_SPLITS) + 1):
+        per = math.ceil(steps / splits)
+        if math.ceil(steps / per) != splits:            # a split would be empty
+            continue
+        best = min(best, (per * math.ceil(tiles / clusters(fmt, bm, splits)), splits))
+    return bm, best[1]
 
 
 def qmm_plain(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor] = None,
@@ -162,21 +183,22 @@ def field_ptrs(qt: QuantTensor, device: torch.device, li: Optional[int] = None):
     ``li`` layer strides: no view is made.  The checks run once per weight
     object and device; the result is kept on the object beside the field
     tensors it was made from, and made anew when one of them is replaced."""
-    tensors = tuple(getattr(qt, f) for f, _, _ in KERNELS[qt.fmt].fields)
+    tensors = KERNELS[qt.fmt].getter(qt)
     memo = qt.__dict__.get("_kernel_fields")
     if memo is None or memo[0] != device or not all(map(operator.is_, memo[1], tensors)):
-        memo = (device, tensors, _check_fields(qt, tensors, device))
+        memo = (device, tensors, *_check_fields(qt, tensors, device),
+                qt.num_layers if qt.stacked else 0)
         qt.__dict__["_kernel_fields"] = memo
-    bases, strides = memo[2]
+    bases, strides, layers = memo[2:]
     if li is None:
-        if qt.stacked:
+        if layers:
             raise ValueError("qmm: a stacked weight needs a layer index")
         return bases
-    if not qt.stacked:
+    if not layers:
         raise ValueError("qmm: a layer index needs a stacked weight")
-    if not -qt.num_layers <= li < qt.num_layers:
-        raise IndexError(f"qmm: layer {li} of a {qt.num_layers}-layer weight")
-    li %= qt.num_layers
+    if not -layers <= li < layers:
+        raise IndexError(f"qmm: layer {li} of a {layers}-layer weight")
+    li %= layers
     return [b + li * st for b, st in zip(bases, strides)]
 
 
@@ -185,44 +207,41 @@ def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
     kern = KERNELS[qt.fmt]
     m, k = x.shape
     kk, n = qt.shape
-    align = BLOCK if qt.fmt == "q8_0" else FOLD
+    align = K_ALIGN[qt.fmt]
     if k != kk or k % align:
         raise ValueError(f"qmm: x [{m}, {k}] against {qt.fmt} weight {qt.shape} "
                          f"(K must be a multiple of {align})")
-    ptrs = field_ptrs(qt, x.device, li)
+    dev = x.device
+    ptrs = field_ptrs(qt, dev, li)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"qmm: output dtype {out_dtype} not supported")
-    bias_ptr = None
+    bias_ptr = 0
     if bias is not None:
-        bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
         if bias.shape != (n,):
             raise ValueError(f"qmm: bias must be [{n}], got {tuple(bias.shape)}")
         bias_ptr = bias.data_ptr()
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         x = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    out_bf16 = int(out_dtype == torch.bfloat16)
-    lib, stream = _build.lib(), _build.stream_ptr(x)
-    if qt.fmt in KQUANT:
-        if x.data_ptr() % 16:
-            x = x.clone()              # the kernels read x in 16-byte pieces
-        bm, splits = kquant_plan(m, k, n)
-        scratch = _scratch(x.device, stream, splits * m * n).data_ptr() if splits > 1 else None
-        err = getattr(lib, kern.entry)(x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), scratch,
-                                       m, n, k, out_bf16, bm, splits, stream)
-    else:
-        err = getattr(lib, kern.entry)(x.data_ptr(), *ptrs, bias_ptr, out.data_ptr(), m, n,
-                                       k, out_bf16, stream)
-    _build.check(kern.entry, err)
+    x_ptr = x.data_ptr()
+    if x_ptr % 16:
+        x = x.clone()                  # the kernel reads x in 16-byte pieces
+        x_ptr = x.data_ptr()
+    bm, splits = wgmma_plan(qt.fmt, m, k, n, device_clusters)
+    err = _build.lib().acestep_qmm(kern.slots.pack(
+        kern.fmt_id, x_ptr, *ptrs, bias_ptr, out.data_ptr(), m, n, k,
+        out_dtype is torch.bfloat16, bm, splits, _build.stream_ptr(x)))
+    _build.check(kern.name, err)
     kern.count((m, k, n))
     return out
 
 
 def wgmma_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [64, 64] @ b [128, 64]^T`` (bf16 in, f32 out) through one plain
-    wgmma tile that uses the K-quant kernels' descriptor, swizzle, A fragment
+    wgmma tile that uses the dequant-matmul's descriptor, swizzle, A fragment
     and accumulator layouts (their check against ``torch.matmul``)."""
     if a.shape != (64, 64) or b.shape != (128, 64) or a.device.type != "cuda":
         raise ValueError("wgmma_tile: a [64, 64] and b [128, 64] on a CUDA device")

@@ -8,10 +8,9 @@ Phases, each announced by a timestamped line:
   2. build      compile csrc/*.cu, one nvcc per source, all started together,
                 into one library in build/kernels/ (ctypes)
   3. check      each kernel against its plain PyTorch version at the shapes the
-                10 s and the 60 s paths launch, plus ragged M and N (and for
-                the q4_k / q6_k kernels the M = 1536 decoder shapes of the
-                120 s bucket).  q8_0
-                matmul: atol 1e-2 + rtol 1e-2 in bf16.  q4_0 / q4_k / q6_k: the
+                10 s and the 60 s paths launch, plus ragged M and N (q8_0 also
+                ragged K: 96, 160, 320; the 4-bit kernels the M = 1536 decoder
+                shapes of the 120 s bucket).  Every dequant-matmul format: the
                 JAX package's kernel-test bound (test_qmm_pallas.py), max error
                 below 2% of the mean |output| on the f32 outputs and >= 98% of
                 the bf16 outputs equal, each within one bf16 step (2^-7).  VAE
@@ -89,10 +88,11 @@ Phases, each announced by a timestamped line:
  18. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32), the
-                q4_k / q6_k shapes also as a CUDA graph (device time) with
-                their TFLOP/s; the LM kernels at three valid lengths of the
-                request, weighted by its launches (rows 9 / 10 also as CUDA
-                graphs beside SDPA); the DiT megakernel beside the layer-path step
+                dequant-matmul shapes also as a CUDA graph (device time) with
+                their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
+                the LM kernels at three valid lengths of the request, weighted
+                by its launches (rows 9 / 10 also as CUDA graphs beside SDPA);
+                the DiT megakernel beside the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -112,8 +112,7 @@ import threading
 import time
 
 WATCHDOG_S = 1100          # whole run, the kernels' build included (limit 1200 s)
-QMM_ATOL, QMM_RTOL = 1e-2, 1e-2
-Q4_REL_MAX, Q4_EQUAL_MIN = 0.02, 0.98
+QMM_REL_MAX, QMM_EQUAL_MIN = 0.02, 0.98
 RES_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -310,8 +309,6 @@ def check_qmm(fmt, shape, seed) -> float:
     name = f"{qmm.KERNELS[fmt].name} M={shape[0]} K={shape[1]} N={shape[2]}"
     got = qmm._launch(case.x, case.qt, None, torch.bfloat16)
     ref = qmm.qmm_plain(case.x, case.qt)
-    if fmt == "q8_0":
-        return check_close(name, got, ref, QMM_ATOL, QMM_RTOL)
     got32 = qmm._launch(case.x, case.qt, None, torch.float32)
     ref32 = qmm.qmm_plain(case.x, case.qt, None, torch.float32)
     require(bool(torch.isfinite(got32).all() and torch.isfinite(got.float()).all()),
@@ -320,10 +317,10 @@ def check_qmm(fmt, shape, seed) -> float:
     g, r = got.float(), ref.float()
     equal = float((g == r).float().mean())
     one_step = bool(((g - r).abs() <= 2.0 ** -7 * r.abs() + 1e-4 * r.abs().mean()).all())
-    ok = rel < Q4_REL_MAX and equal > Q4_EQUAL_MIN and one_step
+    ok = rel < QMM_REL_MAX and equal > QMM_EQUAL_MIN and one_step
     err = max_err(got, ref)
-    log(f"  {name}: f32 max err / mean|ref| {rel:.2e} (< {Q4_REL_MAX}), bf16 equal "
-        f"{equal:.5f} (> {Q4_EQUAL_MIN}), within one bf16 step {one_step}, "
+    log(f"  {name}: f32 max err / mean|ref| {rel:.2e} (< {QMM_REL_MAX}), bf16 equal "
+        f"{equal:.5f} (> {QMM_EQUAL_MIN}), within one bf16 step {one_step}, "
         f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
     return err
@@ -1040,19 +1037,19 @@ def run() -> int:
         errs[names[fmt]] = max(errs[names[fmt]], check_qmm(fmt, shape, seed))
         checked[names[fmt]].add(shape)
 
+    # ragged M, N and K (K % 128: 96, 32, 64; K = 384: the 60 s proj_in)
     for i, shape in enumerate(main_path_shapes(dit_cfg, text_cfg) +
-                              [(77, 2048, 200), (1, 96, 64), (129, 6144, 2048)]):
+                              [(77, 2048, 200), (1, 96, 64), (129, 6144, 2048),
+                               (768, 384, 2048), (16, 160, 2048), (3, 320, 1000)]):
         qcheck("q8_0", shape, i)
     shapes60 = main_path_shapes(dit_cfg, text_cfg, frames=1536)
-    # the decoder shapes of configs[2]'s 120 s bucket (M = 1536) for the K-quant kernels
+    # the decoder shapes of configs[2]'s 120 s bucket (M = 1536) for the 4-bit kernels
     decoder120 = [s for s in main_path_shapes(dit_cfg, text_cfg, frames=3072)
                   if s[0] == 3072 // dit_cfg.patch_size and s[1] % 256 == 0]
     for fmt in FOUR_BIT:
         by_kernel = shapes_by_kernel(fmt, shapes60)
         for kfmt, shapes in sorted(by_kernel.items()):
-            extra = [(77, 2048, 200), (5, 512, 40)] if kfmt == fmt else []
-            if kfmt == fmt and fmt in qmm.KQUANT:
-                extra += decoder120
+            extra = [(77, 2048, 200), (5, 512, 40)] + decoder120 if kfmt == fmt else []
             for i, shape in enumerate(shapes + extra):
                 if shape not in checked[names[kfmt]]:
                     qcheck(kfmt, shape, 1000 + i)
@@ -1430,16 +1427,14 @@ def run() -> int:
             plain = cuda_ms(lambda: qmm.qmm_plain(case.x, case.qt))
             lib = cuda_ms(lib_call)
             b, by = case.bound()
-            extra = ""
-            if fmt in qmm.KQUANT:
-                # device time alone (the eager time above includes the wrapper's host
-                # cost where the device is faster), and the rate
-                g, lg = graph_ms(kern), graph_ms(lib_call)
-                tot["graph"] += cnt * g
-                tot["lib_graph"] += cnt * lg
-                extra = (f"; CUDA graph: kernel {g:.4f} ms "
-                         f"({2.0 * shape[0] * shape[1] * shape[2] / g / 1e9:.1f} TFLOP/s), "
-                         f"library {lg:.4f}")
+            # device time alone (the eager time above includes the wrapper's host
+            # cost where the device is faster), and the rate
+            g, lg = graph_ms(kern), graph_ms(lib_call)
+            tot["graph"] += cnt * g
+            tot["lib_graph"] += cnt * lg
+            extra = (f"; CUDA graph: kernel {g:.4f} ms "
+                     f"({2.0 * shape[0] * shape[1] * shape[2] / g / 1e9:.1f} TFLOP/s), "
+                     f"library {lg:.4f}")
             log(f"  {names[fmt]} M={shape[0]} K={shape[1]} N={shape[2]} x{cnt}/request: "
                 f"kernel {ms:.4f} ms, plain {plain:.4f}, library {lib:.4f}, "
                 f"bound {b:.4f} ({by}){extra}")
@@ -1475,9 +1470,9 @@ def run() -> int:
             tot["bytes" if by == "bytes" else "ops"] += cnt * b
         return tot
 
-    def timed(name, path):
+    def timed(name, path, counts=None):
         log(f"{name} on the {path} path:")
-        counts = served[path][1][name]
+        counts = served[path][1][name] if counts is None else counts
         fmt = next((f for f, n in names.items() if n == name), None)
         tot = time_qmm(fmt, counts) if fmt else time_res(name, counts)
         log(f"{name} per {path} request: kernel {tot['ms']:.4f} ms, plain "
@@ -1505,6 +1500,10 @@ def run() -> int:
                      "library_ms": tot["lib"]})
     for name in (names["q8_0"], unit, trio):
         timed(name, "60s q4_0")
+    # the q8_0 kernel on the shapes the LM requests launched (prefill, codes head,
+    # layer-scan linears), weighted by their launches
+    for key in ("default 2", "pallas"):
+        timed(names["q8_0"], f"LM '{key}'", lm_runs[key][2][names["q8_0"]])
 
     # LM rows: each launch of a request timed at three valid lengths of the
     # codes phase (its first, middle and last step) and weighted by the

@@ -1,6 +1,7 @@
-"""The port's q4_k and q6_k dequant-matmul kernels (csrc/qmm_kquant.cu: wgmma,
-a cp.async ring, 128-row tiles, split-K at small M) against their plain
-PyTorch version, on the card.
+"""The port's dequant-matmul kernel for every quant format (csrc/qmm_wgmma.cu:
+q8_0, q4_0, q4_k, q6_k on one wgmma mainloop, a TMA / cp.async ring, 128-row
+tiles, split-K at small M summed in a cluster) against its plain PyTorch
+version, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one (CUDA kernels have no
 CPU mode).  The file imports neither JAX nor the JAX package, so it runs on the
@@ -23,7 +24,7 @@ from acestep_tpu_torch.ops.cuda import qmm as tqmm
 from acestep_tpu_torch.ops.qlinear import precast_quant_scales
 from acestep_tpu_torch.quant import quantize, stack_layers
 
-FORMATS = ("q4_k", "q6_k")
+FORMATS = ("q8_0", "q4_0", "q4_k", "q6_k")
 REL_MAX = 0.02
 EQUAL_MIN = 0.98
 # the 60 s decoder's products (M = 768 patches) and configs[2]'s 120 s bucket
@@ -34,7 +35,16 @@ DECODER = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
 SMALL = [(1, 256, 2048), (1, 2048, 12288), (64, 1024, 3072), (64, 3072, 1024),
          (256, 2048, 6144), (256, 6144, 2048), (320, 2048, 1024), (320, 2048, 2048)]
 SHAPES = ([(768, k, n) for k, n in DECODER] + [(1536, k, n) for k, n in DECODER]
-          + [(770, 2048, 4096)] + SMALL + [(77, 2048, 200), (5, 512, 40)])
+          + [(770, 2048, 4096)] + SMALL + [(77, 2048, 200), (5, 512, 40)]
+          # the 10 s decoder (M = 128) and the block heights' edges
+          + [(128, 2048, 2048), (128, 6144, 2048), (16, 2048, 2048), (17, 2048, 2048),
+             (65, 1024, 1024)])
+# q8_0 only: K % 128 != 0 (96, 160 and 320: the last step's second x atom part
+# and wholly past K, and its first atom part past K), K = 384 (the 60 s
+# proj_in, also at M = 128 and 768)
+Q8_ONLY = [(1, 96, 64), (65, 96, 64), (16, 160, 2048), (3, 320, 1000), (128, 384, 2048),
+           (768, 384, 2048)]
+CASES = [(fmt,) + s for fmt in FORMATS for s in SHAPES] + [("q8_0",) + s for s in Q8_ONLY]
 
 pytestmark = pytest.mark.cuda
 
@@ -89,8 +99,7 @@ def test_wgmma_tile_matches_matmul(dev):
     assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("fmt,m,k,n", CASES)
 def test_kernel_vs_plain(dev, fmt, m, k, n):
     qt = _qt(fmt, k, n, m + n, dev)
     x = _x(m, k, m + k, dev)
@@ -112,12 +121,25 @@ def test_stacked_layer_in_place(dev, fmt):
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("m,k,n", [(768, 2048, 2048), (64, 1024, 3072), (1, 2048, 2048)])
+@pytest.mark.parametrize("m,k,n", [(768, 2048, 2048), (64, 1024, 3072), (1, 2048, 2048),
+                                   (128, 2048, 2048)])
 def test_reruns_bit_identical(dev, fmt, m, k, n):
     """Two launches give the same bits (the K splits are summed in order)."""
     qt = _qt(fmt, k, n, 7, dev)
     x = _x(m, k, 8, dev)
     bias = torch.randn(n, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(tqmm.qmm(x, qt, bias, dtype), tqmm.qmm(x, qt, bias, dtype))
+
+
+def test_q8_0_ragged_k_split_reruns_bit_identical(dev):
+    """A q8_0 K split whose last step is partial (K = 320: 3 steps, 3 splits)
+    gives the same bits twice and meets the plain version."""
+    assert tqmm.wgmma_plan("q8_0", 3, 320, 1000) == (16, 3)
+    qt = _qt("q8_0", 320, 1000, 9, dev)
+    x = _x(3, 320, 10, dev)
+    bias = torch.randn(1000, device=dev)
+    _assert_close(x, qt, bias)
     for dtype in (torch.float32, torch.bfloat16):
         assert torch.equal(tqmm.qmm(x, qt, bias, dtype), tqmm.qmm(x, qt, bias, dtype))
 
@@ -131,7 +153,7 @@ def test_launch_counter(dev, fmt):
         tqmm.qmm(_x(m, k, 1, dev), _qt(fmt, k, n, 2, dev))
     assert kern.launches == 3
     assert kern.shapes == {(768, 2048, 256): 1, (64, 1024, 256): 2}
-    assert tqmm.kquant_plan(64, 1024, 256)[1] > 1        # the split path was counted too
+    assert tqmm.wgmma_plan(fmt, 64, 1024, 256)[1] > 1    # the split path was counted too
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
