@@ -50,10 +50,12 @@ SIGNATURES = {
     "acestep_qmm_clusters": [_I] * 3,
     # a, b, out, stream
     "acestep_wgmma_tile_check": [_P] * 4,
-    # x, w1, b1, w2, b2, a1, be1, a2, be2, out, N, L, C, dilation, stream
-    "acestep_vae_res_unit": [_P] * 10 + [_I, _I, _I, _I, _P],
-    # x, w1s, b1s, w2s, b2s, a1s, be1s, a2s, be2s, out, N, L, C, stream
-    "acestep_vae_res_trio": [_P] * 10 + [_I, _I, _I, _P],
+    # x, stages, vec, out, N, L, C, dilation, stream (csrc/vae_resunit.cu)
+    "acestep_vae_res_unit": [_P] * 4 + [_I] * 4 + [_P],
+    "acestep_vae_res_unit_tf32": [_P] * 4 + [_I] * 4 + [_P],
+    # x, stages, vec, out, scratch, sync, N, L, C, stream
+    "acestep_vae_res_trio": [_P] * 6 + [_I] * 3 + [_P],
+    "acestep_vae_res_trio_tf32": [_P] * 6 + [_I] * 3 + [_P],
     # shared-memory bytes of one block: (C, dilation) / (C)
     "acestep_vae_res_unit_smem": [_I, _I],
     "acestep_vae_res_trio_smem": [_I],

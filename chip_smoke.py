@@ -14,7 +14,10 @@ Phases, each announced by a timestamped line:
                 JAX package's kernel-test bound (test_qmm_pallas.py), max error
                 below 2% of the mean |output| on the f32 outputs and >= 98% of
                 the bf16 outputs equal, each within one bf16 step (2^-7).  VAE
-                res unit / trio: 1e-4 in f32.  int8-activation q8_0 matmul
+                res unit / trio: 1e-4 in f32 (also N = 2, L = 20 / 45 / 70, below
+                the convs' reach), each rerun bit-identical, and the planted
+                fault (the kernels built without the lo products: single-pass
+                TF32) rejected at the 10 s shapes.  int8-activation q8_0 matmul
                 (row 6): bit-identical at the LM's shapes (M 1, 4, 8, 16) and
                 the DiT timestep shapes (M 1); N % 128 != 0 takes the q8_0 kernel
   4. check_dit  the DiT Euler-step megakernel (row 12) at full width (T 128,
@@ -87,7 +90,9 @@ Phases, each announced by a timestamped line:
                 megakernel, and with int8_act on the layer scan
  18. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
-                over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32), the
+                over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
+                res kernels: three TF32 products over 495 TFLOP/s, the f32
+                CUDA-core bound logged beside), the
                 dequant-matmul shapes also as a CUDA graph (device time) with
                 their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
                 the LM kernels at three valid lengths of the request, weighted
@@ -117,6 +122,7 @@ RES_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 FOUR_BIT = ("q4_0", "q4_k", "q6_k")
 # LM planner (configs[2]'s codes phase, tools/bench_full_pipeline.py:151-152)
 LM_CAPTION = "epic orchestral with soaring strings"
@@ -295,8 +301,12 @@ def _res_x(n, length, c, seed):
 
 
 def res_bound(n, length, c, units):
+    """The res kernels' bound as they compute: three TF32 products a
+    multiply-add (3xTF32) over 495 TFLOP/s; and the f32 CUDA-core bound (67
+    TFLOP/s), logged beside it."""
     nbytes = 2 * n * length * c * 4 + units * (8 * c * c + 6 * c) * 4
-    return bound_ms(nbytes, units * 2.0 * n * length * c * c * 8, F32_FLOPS)
+    flops = units * 2.0 * n * length * c * c * 8
+    return bound_ms(nbytes, 3 * flops, TF32_FLOPS), bound_ms(nbytes, flops, F32_FLOPS)[0]
 
 
 def check_qmm(fmt, shape, seed) -> float:
@@ -327,24 +337,53 @@ def check_qmm(fmt, shape, seed) -> float:
 
 
 def check_unit(shape, seed) -> float:
+    """The unit kernel against its plain version, and a rerun bit-identical."""
+    import torch
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
     n, length, c, d = shape
     x = _res_x(n, length, c, seed)
-    tens = vru.unit_tensors(_unit_params(c, seed), x.device)
-    return check_close(f"vae_res_unit N={n} L={length} C={c} d={d}",
-                       vru.launch_unit(x, tens, d), vru.res_unit_plain(x, *tens, d),
-                       RES_TOL, RES_TOL)
+    ops = vru.unit_operands(_unit_params(c, seed), x.device)
+    got = vru.launch_unit(x, ops, d)
+    name = f"vae_res_unit N={n} L={length} C={c} d={d}"
+    require(torch.equal(got, vru.launch_unit(x, ops, d)), f"{name}: rerun not bit-identical")
+    return check_close(name, got, vru.res_unit_plain(x, *ops.plain, d), RES_TOL, RES_TOL)
 
 
 def check_trio(shape, seed) -> float:
+    """The trio kernel against its plain version, and a rerun bit-identical."""
+    import torch
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
     n, length, c = shape
     x = _res_x(n, length, c, seed)
-    st = vru.trio_tensors(tuple(_unit_params(c, seed + i) for i in range(3)), x.device)
-    return check_close(f"vae_res_trio N={n} L={length} C={c}", vru.launch_trio(x, st),
-                       vru.res_trio_plain(x, *st), RES_TOL, RES_TOL)
+    ops = vru.trio_operands(tuple(_unit_params(c, seed + i) for i in range(3)), x.device)
+    got = vru.launch_trio(x, ops)
+    name = f"vae_res_trio N={n} L={length} C={c}"
+    require(torch.equal(got, vru.launch_trio(x, ops)), f"{name}: rerun not bit-identical")
+    return check_close(name, got, vru.res_trio_plain(x, *ops.plain), RES_TOL, RES_TOL)
+
+
+def res_fault_rejected(kind, shape, seed) -> None:
+    """The planted fault: the kernel built without the lo products (single-pass
+    TF32) must miss the 1e-4 bound that the kernel meets."""
+    import torch
+    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
+
+    n, length, c = shape[:3]
+    x = _res_x(n, length, c, seed)
+    if kind == "unit":
+        d = shape[3]
+        ops = vru.unit_operands(_unit_params(c, seed), x.device)
+        got, ref = vru.launch_unit_tf32(x, ops, d), vru.res_unit_plain(x, *ops.plain, d)
+    else:
+        ops = vru.trio_operands(tuple(_unit_params(c, seed + i) for i in range(3)), x.device)
+        got, ref = vru.launch_trio_tf32(x, ops), vru.res_trio_plain(x, *ops.plain)
+    outside = float(((got - ref).abs() / (RES_TOL + RES_TOL * ref.abs())).max())
+    log(f"  planted fault: vae_res_{kind} {shape} single-pass TF32: max err / bound "
+        f"{outside:.2f}, max_abs_err {max_err(got, ref):.3e} "
+        f"{'rejected' if outside > 1 else 'NOT rejected'}")
+    require(outside > 1, f"vae_res_{kind} {shape}: the 1e-4 check let single-pass TF32 pass")
 
 
 def main_path_shapes(dit_cfg, text_cfg, n_style=64, n_lyric=256, frames=256):
@@ -1057,13 +1096,17 @@ def run() -> int:
     up = vae_cfg.upsampling_ratios
     l256 = frames * up[0] * up[1] * up[2]
     for d in (1, 3, 9):
-        for shape in ((1, l256, 256, d), (2, 45, 256, d)):
+        for shape in ((1, l256, 256, d), (2, 45, 256, d), (1, 20, 256, d)):
             errs[unit] = max(errs[unit], check_unit(shape, d))
             checked[unit].add(shape)
-    for shape in ((1, l256 * up[3], 128), (1, l256 * up[3] * up[4], 128), (2, 70, 128),
-                  (1, 20, 128)):
+    trio10 = ((1, l256 * up[3], 128), (1, l256 * up[3] * up[4], 128))
+    for shape in trio10 + ((2, 70, 128), (2, 45, 128), (1, 20, 128)):
         errs[trio] = max(errs[trio], check_trio(shape, 7))
         checked[trio].add(shape)
+    for d in (1, 3, 9):
+        res_fault_rejected("unit", (1, l256, 256, d), 40 + d)
+    for shape in trio10:
+        res_fault_rejected("trio", shape, 50)
     int8_name, dit_name = qmm_int8.INT8.name, dit_mega.MEGA.name
     errs[int8_name] = 0.0
     lm_h, lm_i = 1024, 3072                 # the 0.6B planner: (K, N) of its q8_0 linears
@@ -1444,28 +1487,33 @@ def run() -> int:
         return tot
 
     def time_res(kind, counts):
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0,
+               "bound_f32": 0.0}
         for shape, cnt in sorted(counts.items()):
             n, length, c = shape[:3]
             x = _res_x(n, length, c, 300)
             if kind == unit:
                 d = shape[3]
-                tens = vru.unit_tensors(_unit_params(c, 300), x.device)
-                ms = cuda_ms(lambda: vru.launch_unit(x, tens, d))
-                plain = cuda_ms(lambda: vru.res_unit_plain(x, *tens, d))
-                lib = cuda_ms(lambda: conv_lib(x, tens, d))
-                b, by = res_bound(n, length, c, 1)
+                ops = vru.unit_operands(_unit_params(c, 300), x.device)
+                ms = cuda_ms(lambda: vru.launch_unit(x, ops, d))
+                plain = cuda_ms(lambda: vru.res_unit_plain(x, *ops.plain, d))
+                lib = cuda_ms(lambda: conv_lib(x, ops.plain, d))
+                (b, by), b32 = res_bound(n, length, c, 1)
             else:
-                st = vru.trio_tensors(tuple(_unit_params(c, 300 + j) for j in range(3)),
-                                      x.device)
-                per = [tuple(t[j] for t in st) for j in range(3)]
-                ms = cuda_ms(lambda: vru.launch_trio(x, st))
-                plain = cuda_ms(lambda: vru.res_trio_plain(x, *st))
+                ops = vru.trio_operands(tuple(_unit_params(c, 300 + j) for j in range(3)),
+                                        x.device)
+                per = [tuple(t[j] for t in ops.plain) for j in range(3)]
+                ms = cuda_ms(lambda: vru.launch_trio(x, ops))
+                plain = cuda_ms(lambda: vru.res_trio_plain(x, *ops.plain))
                 lib = cuda_ms(lambda: [conv_lib(x, per[j], vru.TRIO_D[j]) for j in range(3)])
-                b, by = res_bound(n, length, c, 3)
-            log(f"  {kind} {shape} x{cnt}/request: kernel {ms:.4f} ms, plain {plain:.4f}, "
-                f"library (cuDNN convs) {lib:.4f}, bound {b:.4f} ({by})")
-            for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b)):
+                (b, by), b32 = res_bound(n, length, c, 3)
+            flops = (3 if kind == trio else 1) * 16.0 * n * length * c * c
+            log(f"  {kind} {shape} x{cnt}/request: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f}, library (cuDNN "
+                f"convs) {lib:.4f}, bound {b:.4f} ({by}, 3xTF32), f32 CUDA-core bound "
+                f"{b32:.4f}")
+            for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b),
+                           ("bound_f32", b32)):
                 tot[key] += cnt * v
             tot["bytes" if by == "bytes" else "ops"] += cnt * b
         return tot
@@ -1478,7 +1526,8 @@ def run() -> int:
         log(f"{name} per {path} request: kernel {tot['ms']:.4f} ms, plain "
             f"{tot['plain']:.4f}, library {tot['lib']:.4f}, bound {tot['bound']:.4f}"
             + (f"; CUDA graph: kernel {tot['graph']:.4f} ms, library {tot['lib_graph']:.4f}"
-               if tot.get("graph") else ""))
+               if tot.get("graph") else "")
+            + (f"; f32 CUDA-core bound {tot['bound_f32']:.4f}" if "bound_f32" in tot else ""))
         return tot
 
     # each kernel's row from the path that introduced it; the other paths' totals

@@ -84,19 +84,53 @@ def _unit(c, seed, dev):
 
 
 @pytest.mark.parametrize("c", [128, 256])
-@pytest.mark.parametrize("n,length", [(1, 1000), (2, 33), (1, 5)])
+@pytest.mark.parametrize("n,length", [(1, 1000), (2, 33), (1, 5), (1, 20), (2, 45),
+                                      (1, 122880)])
 def test_res_unit_kernel_vs_plain(dev, c, n, length):
+    """(1, 122880): the 256-channel block of a 512-frame window of the 60 s
+    request; 5 / 20 / 33 / 45 rows: shorter than the conv's reach at d = 9."""
     x = torch.randn((n, length, c), device=dev) * 0.5
     for d in (1, 3, 9):
-        tens = tvru.unit_tensors(_unit(c, d, dev), dev)
-        torch.testing.assert_close(tvru.launch_unit(x, tens, d),
-                                   tvru.res_unit_plain(x, *tens, d),
+        ops = tvru.unit_operands(_unit(c, d, dev), dev)
+        torch.testing.assert_close(tvru.launch_unit(x, ops, d),
+                                   tvru.res_unit_plain(x, *ops.plain, d),
                                    atol=RESUNIT_TOL, rtol=RESUNIT_TOL)
 
 
-@pytest.mark.parametrize("n,length", [(1, 1000), (2, 77), (1, 20)])
+@pytest.mark.parametrize("n,length", [(1, 1000), (2, 77), (1, 20), (2, 45), (1, 5),
+                                      (2, 70), (1, 491520)])
 def test_res_trio_kernel_vs_plain(dev, n, length):
+    """(1, 491520): the first 128-channel block of a 512-frame window of the 60 s
+    request; 5-77 rows: at or below the chained reach of 39 a side."""
     x = torch.randn((n, length, 128), device=dev) * 0.5
-    st = tvru.trio_tensors(tuple(_unit(128, 10 + i, dev) for i in range(3)), dev)
-    torch.testing.assert_close(tvru.launch_trio(x, st), tvru.res_trio_plain(x, *st),
+    ops = tvru.trio_operands(tuple(_unit(128, 10 + i, dev) for i in range(3)), dev)
+    torch.testing.assert_close(tvru.launch_trio(x, ops), tvru.res_trio_plain(x, *ops.plain),
                                atol=RESUNIT_TOL, rtol=RESUNIT_TOL)
+
+
+def test_res_kernels_rerun_bit_identical(dev):
+    x = torch.randn((2, 3001, 128), device=dev) * 0.5
+    ops = tvru.trio_operands(tuple(_unit(128, 20 + i, dev) for i in range(3)), dev)
+    assert torch.equal(tvru.launch_trio(x, ops), tvru.launch_trio(x, ops))
+    x = torch.randn((1, 4001, 256), device=dev) * 0.5
+    ops = tvru.unit_operands(_unit(256, 23, dev), dev)
+    assert torch.equal(tvru.launch_unit(x, ops, 9), tvru.launch_unit(x, ops, 9))
+
+
+def _outside(got, ref) -> bool:
+    return bool(((got - ref).abs() > RESUNIT_TOL + RESUNIT_TOL * ref.abs()).any())
+
+
+def test_res_single_pass_tf32_rejected(dev):
+    """The kernels built without the lo products miss the 1e-4 bound at the
+    10 s request's shapes, so the bound tells TF32 from f32."""
+    x = torch.randn((1, 60000, 256), device=dev) * 0.5
+    ops = tvru.unit_operands(_unit(256, 30, dev), dev)
+    ref = tvru.res_unit_plain(x, *ops.plain, 9)
+    assert not _outside(tvru.launch_unit(x, ops, 9), ref)
+    assert _outside(tvru.launch_unit_tf32(x, ops, 9), ref)
+    x = torch.randn((1, 240000, 128), device=dev) * 0.5
+    ops = tvru.trio_operands(tuple(_unit(128, 31 + i, dev) for i in range(3)), dev)
+    ref = tvru.res_trio_plain(x, *ops.plain)
+    assert not _outside(tvru.launch_trio(x, ops), ref)
+    assert _outside(tvru.launch_trio_tf32(x, ops), ref)

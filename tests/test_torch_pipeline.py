@@ -124,7 +124,9 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "acestep_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "acestep_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + [REPO / "tools" / "time_vae_resunit.py", REPO / "tools" / "vae_resunit_errors.py"]
+             + sorted((REPO / "tests").glob("test_torch_cuda_*.py")))
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
     for module in ("chip_smoke.py", "acestep_tpu_torch/lm_pipeline.py",
