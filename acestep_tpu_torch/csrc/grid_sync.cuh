@@ -1,5 +1,5 @@
-// Grid-wide barrier of the persistent cooperative kernels (decode_mega.cu,
-// dit_mega.cu).  Every block must be resident: the kernels are launched with
+// Grid-wide barrier of the persistent cooperative kernels (dit_mega.cu,
+// vae_resunit.cu).  Every block must be resident: the kernels are launched with
 // cudaLaunchCooperativeKernel on a grid sized from the occupancy query.
 //
 // sync[0] counts arrivals, sync[1] is the generation word.  The last block to

@@ -64,18 +64,14 @@ SIGNATURES = {
     "acestep_decode_attn_fused": [_P],
     # (B, Hq, Hkv, T) -> floats of scratch (< 0: not taken)
     "acestep_decode_attn_scratch": [_I] * 4,
-    # 8 weight fields, scales_f16, 4 norms, kc, ksc, vc, vsc, lengths, x0, cos, sin,
-    # x, k_new, ks_new, v_new, vs_new, scratch, sync, stamps, L, B, H, Hq, Hkv, I, T,
-    # eps, grid, stream
-    "acestep_decode_mega": [_P] * 8 + [_I] + [_P] * 20 + [_I] * 7 + [_F, _I, _P],
-    # () -> shared-memory bytes of one block
-    "acestep_decode_mega_smem": [],
-    # (B, H, Hq, Hkv, I, T) -> floats of scratch
-    "acestep_decode_mega_scratch": [_I] * 6,
-    # () -> blocks of the cooperative grid (< 0: the occupancy query failed)
-    "acestep_decode_mega_grid": [],
-    # x, x_f32, w, scales, xq, xs, out, M, N, K, stream
-    "acestep_qmm_int8": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # one pointer to the call's 8-byte slots (csrc/decode_mega.cu: enum Slot)
+    "acestep_decode_mega": [_P],
+    # (B) -> blocks of the cooperative grid (< 0: the occupancy query failed)
+    "acestep_decode_mega_grid": [_I],
+    # one pointer to the call's 8-byte slots (csrc/qmm_int8.cu: acestep_qmm_int8)
+    "acestep_qmm_int8": [_P],
+    # (M, K, bn, splits) -> shared-memory bytes of one block (< 0: no such plan)
+    "acestep_qmm_int8_smem": [_I] * 4,
     # ptrs[36], dims[18], flags[8] (host arrays), eps, 1/sqrt(D), grid, stream
     "acestep_dit_mega": [_P, _P, _P, _F, _F, _I, _P],
     # (D, Lk, R, KT) -> shared-memory bytes of one block

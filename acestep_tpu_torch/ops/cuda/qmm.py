@@ -181,25 +181,28 @@ def field_ptrs(qt: QuantTensor, device: torch.device, li: Optional[int] = None):
     """The data pointers of the format kernel's fields, in its entry point's
     order.  Layer ``li`` of a stacked weight is each field's base pointer plus
     ``li`` layer strides: no view is made.  The checks run once per weight
-    object and device; the result is kept on the object beside the field
-    tensors it was made from, and made anew when one of them is replaced."""
+    object and device; the result (and each layer's pointers) is kept on the
+    object beside the field tensors it was made from, and made anew when one
+    of them is replaced."""
     tensors = KERNELS[qt.fmt].getter(qt)
     memo = qt.__dict__.get("_kernel_fields")
     if memo is None or memo[0] != device or not all(map(operator.is_, memo[1], tensors)):
         memo = (device, tensors, *_check_fields(qt, tensors, device),
-                qt.num_layers if qt.stacked else 0)
+                qt.num_layers if qt.stacked else 0, {})
         qt.__dict__["_kernel_fields"] = memo
-    bases, strides, layers = memo[2:]
+    bases, strides, layers, by_layer = memo[2:]
     if li is None:
         if layers:
             raise ValueError("qmm: a stacked weight needs a layer index")
         return bases
-    if not layers:
-        raise ValueError("qmm: a layer index needs a stacked weight")
-    if not -layers <= li < layers:
-        raise IndexError(f"qmm: layer {li} of a {layers}-layer weight")
-    li %= layers
-    return [b + li * st for b, st in zip(bases, strides)]
+    ptrs = by_layer.get(li)
+    if ptrs is None:
+        if not layers:
+            raise ValueError("qmm: a layer index needs a stacked weight")
+        if not -layers <= li < layers:
+            raise IndexError(f"qmm: layer {li} of a {layers}-layer weight")
+        ptrs = by_layer[li] = [b + (li % layers) * st for b, st in zip(bases, strides)]
+    return ptrs
 
 
 def _launch(x: torch.Tensor, qt: QuantTensor, bias: Optional[torch.Tensor],
@@ -267,7 +270,7 @@ def _qmm_2d(x: torch.Tensor, qt: QuantTensor, bias, out_dtype, int8_act: bool,
             li: Optional[int] = None):
     if (int8_act and qt.fmt == "q8_0" and x.shape[0] <= _int8.MAX_M
             and qt.shape[1] % _int8.N_ALIGN == 0):
-        y = _int8.qmm_int8_act(x, qt if li is None else qt.layer(li))
+        y = _int8.qmm_int8_act(x, qt, li)
         if bias is None:
             return y.to(out_dtype)
         return (y.float() + bias.float()).to(out_dtype)

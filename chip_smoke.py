@@ -18,8 +18,10 @@ Phases, each announced by a timestamped line:
                 the convs' reach), each rerun bit-identical, and the planted
                 fault (the kernels built without the lo products: single-pass
                 TF32) rejected at the 10 s shapes.  int8-activation q8_0 matmul
-                (row 6): bit-identical at the LM's shapes (M 1, 4, 8, 16) and
-                the DiT timestep shapes (M 1); N % 128 != 0 takes the q8_0 kernel
+                (row 6): bit-identical, and on a rerun, at the LM's shapes (the
+                layer linears and the codes head, M 1, 2, 4, 8, 16), the DiT
+                timestep shapes (M 1) and layers 1 and 2 of a stacked weight
+                read in place; N % 128 != 0 takes the q8_0 kernel
   4. check_dit  the DiT Euler-step megakernel (row 12) at full width (T 128,
                 Lc 320), with and without padded condition tokens, through 2
                 and 24 random q8_0 layers, plus a 2-layer case whose sliding
@@ -68,8 +70,10 @@ Phases, each announced by a timestamped line:
                 between its plain version on the card and on the CPU (x max
                 error / peak, K/V int8 and scales, never tighter than the JAX
                 test's 2e-2, 2, 2e-2; the shares of x and of the new K/V that
-                differ), argmax equal, reruns bit-identical; then four planted
-                faults in the plain version, each of which one depth rejects
+                differ), argmax equal, reruns and grids of 132 and 199 blocks
+                bit-identical with the occupancy grid (20 reruns of the B = 4,
+                28-layer case); then four planted faults in the plain version,
+                each of which one depth rejects
  14. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
                 quantized head, int8 KV), drawn on the card
  15. lm_serve   configs[2]'s LM request through
@@ -96,7 +100,9 @@ Phases, each announced by a timestamped line:
                 dequant-matmul shapes also as a CUDA graph (device time) with
                 their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
                 the LM kernels at three valid lengths of the request, weighted
-                by its launches (rows 9 / 10 also as CUDA graphs beside SDPA);
+                by its launches (rows 9 / 10 also as CUDA graphs beside SDPA;
+                row 11 with its stage split; row 6 at each shape also as CUDA
+                graphs beside torch.matmul);
                 the DiT megakernel beside the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
@@ -514,13 +520,39 @@ def check_int8(shape, seed) -> float:
     if shape[0] > 2:
         x[2] = 0.0
     got = qmm_int8._launch(x, case.qt)
+    again = qmm_int8._launch(x, case.qt)
     ref = qmm_int8.qmm_int8_act_plain(x, case.qt)
     require(bool(torch.isfinite(got.float()).all()), f"row 6 {shape}: non-finite output")
     same = bool(torch.equal(got, ref))
     log(f"  {qmm_int8.INT8.name} M={shape[0]} K={shape[1]} N={shape[2]}: bit-identical "
-        f"{same}, max_abs_err {max_err(got, ref):.3e}")
+        f"{same}, max_abs_err {max_err(got, ref):.3e}, rerun bit-identical "
+        f"{bool(torch.equal(got, again))}")
     require(same, f"row 6 {shape}: kernel differs from its plain version")
+    require(bool(torch.equal(got, again)), f"row 6 {shape}: two launches on the same inputs differ")
     return max_err(got, ref)
+
+
+def check_int8_stacked(seed) -> float:
+    """Row 6 on layers 1 and 2 of a stacked 3-layer weight (qkv's shape), read
+    in place (base + li layer strides): the plain version of the layer's view,
+    bit for bit."""
+    import torch
+    from acestep_tpu_torch.ops.cuda import qmm_int8
+    from acestep_tpu_torch.ops.qlinear import precast_quant_scales
+    from acestep_tpu_torch.quant import quantize, stack_layers
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    st = precast_quant_scales(stack_layers(
+        [quantize(torch.randn((1024, 4096), generator=g, device="cuda") * 0.02, "q8_0")
+         for _ in range(3)]))
+    x = torch.randn((2, 1024), generator=g, device="cuda").bfloat16()
+    for li in (1, 2):
+        got = qmm_int8.qmm_int8_act(x, st, li)
+        same = bool(torch.equal(got, qmm_int8.qmm_int8_act_plain(x, st.layer(li))))
+        log(f"  {qmm_int8.INT8.name} stacked weight, layer {li} read in place: bit-identical "
+            f"{same}")
+        require(same, f"row 6 stacked layer {li}: kernel differs from its plain version")
+    return 0.0
 
 
 def int8_bound(m, k, n):
@@ -930,6 +962,19 @@ def check_mega(check_layers, cfg) -> float:
             again = decode_mega.decode_layers_mega(layers_d, cfg_d, *args)
             require(all(bool(torch.equal(a, c)) for a, c in zip(got, again)),
                     f"{label}: two launches on the same inputs differ")
+            # the plan fixes the order of every sum: another grid, or any rerun,
+            # gives the same bits (a race or a timing-dependent order would not)
+            for grid in (132, 199):
+                other = decode_mega.decode_layers_mega(layers_d, cfg_d, *args, grid=grid)
+                require(all(bool(torch.equal(a, c)) for a, c in zip(got, other)),
+                        f"{label}: a {grid}-block grid differs from the occupancy grid")
+            reruns = 20 if (n_l, b) == (cfg.num_hidden_layers, 4) else 0
+            for _ in range(reruns):
+                again = decode_mega.decode_layers_mega(layers_d, cfg_d, *args)
+                require(all(bool(torch.equal(a, c)) for a, c in zip(got, again)),
+                        f"{label}: a rerun differs")
+            log(f"  {label}: grids of 132 and 199 blocks{' and 20 reruns' if reruns else ''} "
+                "bit-identical with the occupancy grid")
             ref = decode_mega.decode_layers_mega_plain(layers_d, cfg_d, *args)
             err = max(err, max_err(got[0], ref[0]))
             t = time.perf_counter()
@@ -1110,13 +1155,14 @@ def run() -> int:
     int8_name, dit_name = qmm_int8.INT8.name, dit_mega.MEGA.name
     errs[int8_name] = 0.0
     lm_h, lm_i = 1024, 3072                 # the 0.6B planner: (K, N) of its q8_0 linears
-    int8_shapes = [(m, k, n) for m in (1, 4, 8, 16)
+    int8_shapes = [(m, k, n) for m in (1, 2, 4, 8, 16)
                    for k, n in ((lm_h, 4096), (2048, lm_h), (lm_h, 2 * lm_i), (lm_i, lm_h),
                                 (lm_h, 65536))]
     h = dit_cfg.hidden_size
     int8_shapes += [(1, 256, h), (1, h, h), (1, h, 6 * h)]       # the DiT timestep linears
     for i, shape in enumerate(int8_shapes):
         errs[int8_name] = max(errs[int8_name], check_int8(shape, 500 + i))
+    check_int8_stacked(560)
     ragged = QmmCase("q8_0", 4, 512, 200, 599)
     n_int8, n_q8 = qmm_int8.INT8.launches, qmm.KERNELS["q8_0"].launches
     qmm.qmm_nd(ragged.x, ragged.qt, int8_act=True)
@@ -1614,8 +1660,14 @@ def run() -> int:
                                                                         *args), iters=50))
         per["plain"].append(cuda_ms(lambda: decode_mega.decode_layers_mega_plain(
             layers, QWEN3_0_6B, *args), iters=3))
+        stamps = torch.zeros(2 + len(decode_mega.STAGES) * QWEN3_0_6B.num_hidden_layers,
+                             dtype=torch.int64, device="cuda")
+        decode_mega.decode_layers_mega(layers, QWEN3_0_6B, *args, stamps=stamps)
+        split = decode_mega.stage_times(stamps, QWEN3_0_6B.num_hidden_layers)
         log(f"  {mega_name} B=1 T={LM_T} length {n}: kernel {per['ms'][-1]:.4f} ms, plain "
-            f"{per['plain'][-1]:.4f}, bound {mega_bound(QWEN3_0_6B, 1, [n])[0]:.4f}")
+            f"{per['plain'][-1]:.4f}, bound {mega_bound(QWEN3_0_6B, 1, [n])[0]:.4f}; by stage "
+            "(block 0's clock at the end of each of its stages, ms summed over the layers): "
+            + json.dumps({k: round(v, 4) for k, v in split.items()}))
     bound = sum(mega_bound(QWEN3_0_6B, 1, [n])[0] for n in steps) * n_launch / len(steps)
     mean = {k: sum(v) / len(v) for k, v in per.items()}
     rows.append({"name": mega_name, "route": "cuda", "source": decode_mega.MEGA.source,
@@ -1630,22 +1682,35 @@ def run() -> int:
     # row 6: each launch shape of a request timed alone, weighted by its launches;
     # the row is request B's default path (the codes head), the other paths logged
     def time_int8(label, counts):
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "bytes": 0.0, "ops": 0.0,
+               "dev": 0.0, "lib_dev": 0.0}
         for i, (shape, cnt) in enumerate(sorted(counts.items())):
             case = QmmCase("q8_0", *shape, 700 + i)
-            ms = cuda_ms(lambda: qmm_int8._launch(case.x, case.qt), iters=20)
+            def kern():
+                return qmm_int8._launch(case.x, case.qt)
+
+            def lib_call():
+                return torch.matmul(case.x, case.wd)
+
+            ms = cuda_ms(kern, iters=20)
             plain = cuda_ms(lambda: qmm_int8.qmm_int8_act_plain(case.x, case.qt), iters=3)
-            lib = cuda_ms(lambda: torch.matmul(case.x, case.wd), iters=20)
+            lib = cuda_ms(lib_call, iters=20)
+            # device time alone (CUDA graphs): the eager times include the
+            # wrapper's host cost where the device is faster
+            dev, lib_dev = graph_ms(kern), graph_ms(lib_call)
             b, by = int8_bound(*shape)
             log(f"  {int8_name} M={shape[0]} K={shape[1]} N={shape[2]} x{cnt}/request: kernel "
                 f"{ms:.4f} ms, plain {plain:.4f}, library (matmul on the dequantized bf16 "
-                f"weight) {lib:.4f}, bound {b:.4f} ({by})")
-            for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b)):
+                f"weight) {lib:.4f}, bound {b:.4f} ({by}); CUDA graph: kernel {dev:.4f} ms, "
+                f"library {lib_dev:.4f}")
+            for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b),
+                           ("dev", dev), ("lib_dev", lib_dev)):
                 tot[key] += cnt * v
             tot["bytes" if by == "bytes" else "ops"] += cnt * b
         log(f"{int8_name} per {label} ({sum(counts.values())} launches): kernel "
             f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f}, library {tot['lib']:.4f}, bound "
-            f"{tot['bound']:.4f}")
+            f"{tot['bound']:.4f}; CUDA graph: kernel {tot['dev']:.4f} ms, library "
+            f"{tot['lib_dev']:.4f}")
         return tot
 
     time_int8("request A (DiT timestep linears)", served["A"][1][int8_name])

@@ -316,6 +316,21 @@ def test_decode_mega_vs_plain(dev, cfg, b, t_max):
                     tmega.decode_layers_mega_plain(lay2, two, *args2))
 
 
+@pytest.mark.parametrize("cfg,b", [(SMALL, 1), (SMALL, 4), (SMALL, 8), (QWEN3_0_6B, 1),
+                                   (QWEN3_0_6B, 4), (QWEN3_0_6B, 8)],
+                         ids=["2L-b1", "2L-b4", "2L-b8", "28L-b1", "28L-b4", "28L-b8"])
+def test_decode_mega_grid_invariant(dev, cfg, b):
+    """The same outputs bit for bit from the occupancy grid, 132 blocks and
+    199 blocks: every sum runs in an order fixed by the plan, not by which
+    block runs a unit or when."""
+    layers, args = _mega_case(cfg, b, 1408, 10 + b, dev)
+    want = tmega.decode_layers_mega(layers, cfg, *args)
+    for grid in (132, 199):
+        got = tmega.decode_layers_mega(layers, cfg, *args, grid=grid)
+        for a, c in zip(want, got):
+            assert torch.equal(a, c), grid
+
+
 def test_decode_mega_refused_launch_raises(dev):
     layers, args = _mega_case(SMALL, 1, 512, 0, dev)
     with pytest.raises(RuntimeError, match="acestep_decode_mega"):

@@ -7,7 +7,9 @@ CPU mode).  The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_mega_int8.py -q
 
-Tolerances: row 6 bit-identical (both sum the same exact f32 terms in K order).
+Tolerances: row 6 bit-identical (both sum the same exact f32 terms in K order),
+at every layer-scan shape of request B, for layer li != 0 of a stacked weight,
+and on a rerun.
 Row 12: two correct summation orders of the megakernel's f32 sums part a
 little, and that grows with depth; each test measures it (the plain version on
 the card against the same on the CPU) and holds the kernel to 1.5x that drift
@@ -30,7 +32,7 @@ from acestep_tpu_torch.ops.cuda import dit_mega as tdm
 from acestep_tpu_torch.ops.cuda import qmm as tqmm
 from acestep_tpu_torch.ops.cuda import qmm_int8 as tint8
 from acestep_tpu_torch.ops.qlinear import precast_quant_scales
-from acestep_tpu_torch.quant import quantize
+from acestep_tpu_torch.quant import quantize, stack_layers
 
 DRIFT_FACTOR = 1.5
 MEGA_REL_MIN = 5e-3
@@ -69,6 +71,53 @@ def test_int8_act_bit_identical(dev, shape):
         # the plain version on the card and on the CPU agree bit for bit too
         cpu = tint8.qmm_int8_act_plain(xx.cpu(), weights.tree_to({"w": qt}, "cpu")["w"])
         assert torch.equal(ref.cpu(), cpu)
+
+
+# request B's layer-scan shapes (Qwen3-0.6B: qkv, o_proj, gate-up, down) and the
+# codes head, at every batch the planner decodes
+LM_SHAPES = [(m, k, n) for m in (1, 2, 4, 8, 16)
+             for k, n in ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 65536))]
+
+
+def _q8(k, n, seed, dev, layers=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ws = [quantize(torch.randn((k, n), generator=g, device=dev) * 0.02, "q8_0")
+          for _ in range(layers or 1)]
+    return precast_quant_scales(ws[0] if layers is None else stack_layers(ws)), g
+
+
+@pytest.mark.parametrize("shape", LM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_act_lm_shapes_bit_identical(dev, shape):
+    """Every layer-scan shape of request B: one launch a call, bit-identical
+    with the plain version, and a rerun bit-identical."""
+    m, k, n = shape
+    qt, g = _q8(k, n, m + k + n, dev)
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    n0 = tint8.INT8.launches
+    got = tint8.qmm_int8_act(x, qt)
+    again = tint8.qmm_int8_act(x, qt)
+    assert tint8.INT8.launches == n0 + 2
+    assert torch.equal(got, tint8.qmm_int8_act_plain(x, qt)) and torch.equal(got, again)
+
+
+def test_int8_act_stacked_layer_in_place(dev):
+    """Layer li != 0 of a stacked weight, read through base + li layer
+    strides: the plain version of the layer's view, bit for bit."""
+    qt, g = _q8(1024, 4096, 3, dev, layers=3)
+    x = torch.randn((2, 1024), generator=g, device=dev).bfloat16()
+    for li in (1, 2):
+        got = tint8.qmm_int8_act(x, qt, li)
+        assert torch.equal(got, tint8.qmm_int8_act_plain(x, qt.layer(li)))
+        assert torch.equal(tqmm.qmm_stacked_nd(x[None], qt, li, int8_act=True)[0], got)
+
+
+def test_int8_act_smem_matches_the_kernel(dev):
+    """The plan's shared-memory mirror equals the kernel's own layout."""
+    from acestep_tpu_torch.ops.cuda import _build
+    for m, k, n in LM_SHAPES + INT8_SHAPES:
+        bn, splits = tint8.int8_plan(m, k, n)
+        assert _build.lib().acestep_qmm_int8_smem(m, k, bn, splits) == \
+            tint8.int8_smem(m, k, bn, splits)
 
 
 def test_int8_dispatch_on_the_card(dev):

@@ -19,6 +19,8 @@ Tolerances:
     greedy tokens equal.
 """
 
+import struct
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,8 @@ from acestep_tpu.serving import lm as jlm
 from acestep_tpu_torch import weights
 from acestep_tpu_torch.ops import linear as tlinear
 from acestep_tpu_torch.ops.cuda import qmm_int8 as tint8
+from acestep_tpu_torch.ops.qlinear import precast_quant_scales
+from acestep_tpu_torch.quant import quantize, stack_layers
 from acestep_tpu_torch.serving import lm as tlm
 from tests.test_torch_lm_serving import WIDE, _caches, _prompt, _sampler, tcfg_of
 
@@ -227,3 +231,103 @@ def test_lm_layer_scan_int8_matches_jax(pallas_int8, monkeypatch):
     # traces of its layer scan, not runs)
     assert calls["int8"] == 3 * (4 * 2 + 1) and calls["checked"] == 4 * 2 + 1
     assert pallas_int8["int8"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan and its wrapper (no card: a stand-in library takes
+# the packed slots)
+# ---------------------------------------------------------------------------
+
+# request B's layer-scan shapes (Qwen3-0.6B's qkv, o_proj, gate-up, down), the
+# codes head and the DiT's timestep linears
+LM_KN = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 65536)]
+PLAN_SHAPES = [(m, k, n) for m in (1, 2, 4, 8, 16) for k, n in LM_KN + [
+    (256, 2048), (2048, 2048), (2048, 12288), (96, 128), (512, 384)]]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_int8_plan_tiles_and_splits(m, k, n):
+    """The column tiles cover N; the K splits are whole, non-empty runs of
+    32-blocks that cover K; every block owns at least 4 columns' sums; the
+    shared memory stays within the kernel's bound."""
+    bn, splits = tint8.int8_plan(m, k, n)
+    assert bn in tint8.TILES_N and n % bn == 0 and (n // bn) * bn == n
+    assert splits in (1, 2, 4, 8) and bn // splits >= 4
+    nkb = k // 32
+    per = -(-nkb // splits)
+    runs = [(r * per, min(nkb, (r + 1) * per)) for r in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == nkb
+    assert all(lo < hi for lo, hi in runs) and all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert tint8.int8_smem(m, k, bn, splits) <= tint8.SMEM_MAX
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("k,n", LM_KN)
+def test_int8_plan_fills_the_card(m, k, n):
+    """At least one block per SM (132) at every LM shape; the codes head
+    (N = 65536) needs no split."""
+    bn, splits = tint8.int8_plan(m, k, n)
+    assert n // bn * splits >= tint8.SMS
+    assert splits == 1 or n // bn < tint8.SMS
+
+
+class _FakeLib:
+    """Records the slots the wrapper packs instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def acestep_qmm_int8(self, slots):
+        self.calls.append(struct.unpack(f"<{len(slots) // 8}q", slots))
+        return 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    from acestep_tpu_torch.ops.cuda import _build
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    return lib
+
+
+def _stacked_q8(layers=3, k=1024, n=256):
+    g = torch.Generator().manual_seed(0)
+    return precast_quant_scales(stack_layers(
+        [quantize(torch.randn((k, n), generator=g) * 0.05, "q8_0") for _ in range(layers)]))
+
+
+def test_int8_wrapper_reads_layer_li_in_place(fake_lib):
+    """The slots name layer li's data and scales as base + li layer strides,
+    the pointers of the view qt.layer(li), and the plan's tile and split."""
+    st = _stacked_q8()
+    x = torch.zeros((2, 1024), dtype=torch.bfloat16)
+    for li in (0, 1, 2):
+        tint8._launch(x, st, li)
+        view = st.layer(li)
+        slots = fake_lib.calls[-1]
+        assert slots[2] == view.data.data_ptr() and slots[3] == view.scales.data_ptr()
+        assert slots[:2] == (x.data_ptr(), 0) and slots[5:10] == (2, 256, 1024,
+                                                                  *tint8.int8_plan(2, 1024, 256))
+    tint8._launch(x.float(), st.layer(1))             # a 2-D weight; f32 x
+    assert fake_lib.calls[-1][1] == 1 and fake_lib.calls[-1][2] == st.layer(1).data.data_ptr()
+
+
+def test_int8_wrapper_raises_before_any_launch(fake_lib):
+    """What the kernel cannot take raises in the wrapper before the kernel is
+    built or launched."""
+    st = _stacked_q8()
+    x = torch.zeros((2, 1024), dtype=torch.bfloat16)
+    bad = [(torch.zeros((2, 512), dtype=torch.bfloat16), st, 0),          # K mismatch
+           (torch.zeros((17, 1024), dtype=torch.bfloat16), st, 0),        # M > 16
+           (x, st, None),                                                # stacked needs li
+           (x, st.layer(0), 0),                                          # 2-D takes none
+           (x, st, 3),                                                   # no layer 3
+           (x, stack_layers([quantize(torch.randn((1024, 256)) * 0.05, "q8_0")] * 2), 0),
+           (x, precast_quant_scales(quantize(torch.randn((1024, 200)) * 0.05, "q8_0")), None),
+           (x, precast_quant_scales(quantize(torch.randn((1024, 256)) * 0.05, "q4_0")), None),
+           (x, st.map(lambda a: a.transpose(-1, -2).contiguous().transpose(-1, -2)), 0)]
+    for args in bad:
+        with pytest.raises((ValueError, IndexError)):
+            tint8._launch(*args)
+    assert fake_lib.calls == []

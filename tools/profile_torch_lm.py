@@ -5,9 +5,10 @@
 
 Builds the full-width random 0.6B q8_0 planner (fused weights, quantized head,
 int8 KV) on the card.  Prints
-  * the megakernel's time per launch by stage (the card's clock at each grid
-    barrier of one launch, summed over the 28 layers) at B = 1, 4, 8 and three
-    cache lengths, beside its CUDA-event time per launch;
+  * the megakernel's time per launch by stage (block 0's clock at the end of
+    each of its stages in one launch, waits included, summed over the 28
+    layers) at B = 1, 4, 8 and three cache lengths, beside its CUDA-event time
+    per launch;
   * for configs[2]'s LM request (120 s -> 600 codes, bpm 100, no CoT, batch 1,
     the byte tokenizer of chip_smoke.py), answered once as a warm-up, once
     under torch.profiler and once more without it: the device time by kernel
