@@ -178,10 +178,10 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 }
 
-// Grid-wide barrier of the consumers (grid_sync.cuh's protocol on the named
-// barrier): sync[0] counts arrivals, sync[1] is the generation word; the last
-// block to arrive resets the counter, then bumps the generation.  Every block
-// is resident (cooperative launch).  A wait past ~10 s traps.
+// Grid-wide barrier of the consumers (on the named barrier): sync[0] counts
+// arrivals, sync[1] is the generation word; the last block to arrive resets
+// the counter, then bumps the generation.  Every block is resident
+// (cooperative launch).  A wait past ~10 s traps.
 __device__ __forceinline__ void consumer_grid_barrier(unsigned* sync) {
   consumer_sync();
   if (threadIdx.x == 0) {

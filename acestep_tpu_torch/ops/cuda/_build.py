@@ -41,7 +41,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
     # one pointer to the call's 8-byte slots (csrc/qmm_wgmma.cu: acestep_qmm)
@@ -72,12 +71,12 @@ SIGNATURES = {
     "acestep_qmm_int8": [_P],
     # (M, K, bn, splits) -> shared-memory bytes of one block (< 0: no such plan)
     "acestep_qmm_int8_smem": [_I] * 4,
-    # ptrs[36], dims[18], flags[8] (host arrays), eps, 1/sqrt(D), grid, stream
-    "acestep_dit_mega": [_P, _P, _P, _F, _F, _I, _P],
-    # (D, Lk, R, KT) -> shared-memory bytes of one block
-    "acestep_dit_mega_smem": [_I, _I, _I, _I],
-    # (shared-memory bytes) -> blocks of the cooperative grid
-    "acestep_dit_mega_grid": [_I],
+    # one pointer to the call's 8-byte slots (csrc/dit_mega.cu: enum Slot)
+    "acestep_dit_mega": [_P],
+    # () -> shared-memory bytes of one block
+    "acestep_dit_mega_smem": [],
+    # () -> blocks of the launch: 4 x the clusters the card holds (< 0: failed)
+    "acestep_dit_mega_grid": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 """Every DiT decoder layer of one Euler step in one launch: CUDA megakernel
-wrapper, its plain PyTorch version and the shape/format gate (opt-in: the JAX
-package's ``ACESTEP_TPU_DIT_MEGA=1``, here ``dit.forward(..., dit_mega=True)``).
+wrapper, its plan, its plain PyTorch version and the shape/format gate
+(opt-in: the JAX package's ``ACESTEP_TPU_DIT_MEGA=1``, here
+``dit.forward(..., dit_mega=True)``).
 
 Kernel: ``csrc/dit_mega.cu`` (hand-written for sm_90a) replaces
 ``acestep_tpu/ops/pallas/dit_mega.py:158 _mega_kernel`` (via
@@ -10,49 +11,347 @@ with the per-layer sliding band, o_proj and the gated residual, the cross
 norm, cross q and attention over the cached condition K/V with the additive
 encoder mask, cross o_proj and its residual, the modulated MLP input, gate-up,
 SiLU(gate) * up, down and the gated residual.  The residual stream stays f32
-through all layers.  The kernel is persistent and cooperative (grid from the
-occupancy query; grid-wide barriers between the stages); a refused launch
-raises.
+through all layers.
+
+The kernel is persistent (every block resident: the grid is the number of
+3-block clusters the card holds at once, checked by the C entry) and has no
+grid barrier.  Its blocks walk fixed queues of work units (:func:`block_queue`)
+and wait on ready counters for what each unit reads (:func:`unit_waits`).  A
+GEMM job is one output tile over all K, computed by the three blocks of one
+cluster (each a third of K) and summed in rank order through distributed
+shared memory, so no split-K partial goes through device memory; the job's
+epilogue does the stage's light work (q/k norm and rope, SiLU(g) * u, the
+residual add).  The three row norms are units of their own
+(``NT`` tokens each).  :class:`DitPlan` is the layout of the launch's scratch
+regions and sync words, which the kernel checks against its own;
+:func:`unit_accesses` names what each unit reads and writes, so
+tests/test_torch_dit_mega_plan.py simulates the plan on the CPU (no deadlock,
+each tile produced once a layer, no region overwritten while a reader is
+pending, the split-K order fixed).
 
 Gate (``supported``): the JAX gate's shape and format rules (batch 1; q8_0
 fused, stacked weights with f32 scales; every K and N a multiple of the chunk
-edge ``min(H, 1024)``; head dim a multiple of 128; T a multiple of 8).  In
-place of the TPU's 12 MiB VMEM budget it takes the kernel's own limits: one
-attention unit in shared memory at its smallest (one query row's scores
-against the longer of T and Lc, and a 32-row K / V tile: ``_smem`` within
-``MAX_SMEM``) and at most ``MAX_LAYERS`` layers.  Activations and partial
-sums live in device memory, so T is not capped by on-chip memory: the port
-admits every case the JAX gate admits and more, for example the full-width
-DiT at T = 256 patch tokens (20.48 s), which the JAX VMEM estimate declines
-(16.5-17.1 MiB > 12 MiB).
+edge ``min(H, 1024)``; T a multiple of 8) with head dim 128 and H a multiple of
+128 (the kernel's tiles: one qkv column tile is one head).  In place of the
+TPU's 12 MiB VMEM budget the attention rows are capped at ``LK_MAX`` (the
+longest row the first CUDA design held in shared memory; this design streams
+K and V in chunks and keeps admitting every length it did) and the layers at
+``MAX_LAYERS``.  So the port admits every case the JAX gate admits and more,
+for example the full-width DiT at T = 256 patch tokens (20.48 s), which the
+JAX VMEM estimate declines (16.5-17.1 MiB > 12 MiB).
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Sequence
+import struct
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from acestep_tpu_torch.ops.cuda import _build
 from acestep_tpu_torch.ops.nn import rotate_half
-from acestep_tpu_torch.quant import BLOCK, QuantTensor, dequantize
+from acestep_tpu_torch.quant import QuantTensor, dequantize
 
 NEG = -1e30
 CH_MAX = 1024            # the JAX gate's chunk edge: min(H, 1024)
-THREADS = 256
-MAXR = 8                 # attention query rows a unit (fewer where Lk is long)
-MIN_TILE = 32            # K / V rows a shared-memory tile at least
-ATTN_SMEM_TARGET = 96 * 1024    # q rows, scores and output sums of a unit
-ATTN_SMEM = 200 * 1024          # ... and the K / V tile
-MAX_SMEM = 232448        # bytes of shared memory one block may use on sm_90
-GEMM_SMEM = 72704        # the GEMM tiles' shared memory (GEMM_SMEM in the .cu)
+HEAD_DIM = 128
+LK_MAX = 54880           # longest attention row (max(T, Lc)) the gate admits
 MAX_LAYERS = 512         # sliding flags travel as 8 words of bits
-GEMM_TILE = 128          # GEMM output tile edge (rows and columns)
-MAX_SPLIT = 8
+THREADS = 256
+CS = 3                   # blocks of a cluster: the K splits of a GEMM job
+TT = 128                 # tokens of a GEMM pass (the wgmma width)
+KSTEP = 128              # K rows of a weight tile
+NT = 8                   # tokens of a norm unit
+QB = 16                  # query rows of an attention unit
+KC = 64                  # keys of an attention chunk
+WR, XR = 3, 4            # slots of the weight ring and of the activation ring
 MEGA = _build.Counted("dit_mega", "acestep_tpu_torch/csrc/dit_mega.cu",
                       "acestep_tpu/ops/pallas/dit_mega.py:158")
+
+# shared memory of one block (bytes; csrc/dit_mega.cu mirrors each constant):
+# the activation ring (also the parked partial tile and the attention
+# chunks), the weight ring, then mbarriers and small scratch
+X_SLOT = 2 * TT * 128                          # a K step of x: two 64-wide atoms
+W_SLOT = 2 * KSTEP * 64 + 2 * 4 * 64 * 4       # two 64-column int8 halves, their scales
+PARK = TT * (128 + 4) * 4                      # a partial tile [TT][128 + 4] f32
+ATTN = 6 * KC * (2 * HEAD_DIM + 16)            # 6 chunks of KC padded K or V rows
+XREG = max(XR * X_SLOT, PARK, ATTN)
+MISC = 2048
+SMEM = 1024 + XREG + WR * W_SLOT + MISC        # + 1024: the base aligned to 1024
+
+# one block's stages of a layer, in queue order (stage_times' keys)
+STAGES = ("norm sa", "qkv", "self-attn", "o_proj", "norm cross", "cross q", "cross-attn",
+          "cross o_proj", "norm mlp", "gate-up", "down")
+NORM_SA, QKV, SELF, SO, NORM_CA, CQ, CROSS, CO, NORM_MLP, GU, DN = range(len(STAGES))
+GEMMS = (QKV, SO, CQ, CO, GU, DN)
+MODE_A = (QKV, GU)       # both warpgroups one K step (qkv: a head; gate-up: g and u)
+NORM_KIND = {NORM_SA: 0, NORM_CA: 1, NORM_MLP: 2}
+PANEL = {QKV: 0, CQ: 1, GU: 2}                 # the norm kind whose output a GEMM reads
+RESID = {SO: 0, CO: 1, DN: 2}                  # the residual stages' counters
+# phases of a queue item: a GEMM job's accumulation, its reduction and
+# epilogue, the cluster's hand-back of the parked tiles; any other unit
+ACC, RED, SYNC, UNIT = range(4)
+# scratch regions (bytes) and sync-word groups, in csrc/dit_mega.cu's order
+REGIONS = ("xa_sa", "xa_ca", "xa_mlp", "qb", "kb", "vb", "attn_s", "attn_c", "qc", "act")
+GROUPS = ("norm", "qkv", "self", "cq", "cross", "resid", "gu", "done")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class DitPlan:
+    """The launch's work units, scratch regions and sync words at T tokens,
+    hidden ``h``, ``hq`` / ``hkv`` heads of dim 128, intermediate ``inter``,
+    on a ``grid``-block launch (``grid // CS`` clusters)."""
+
+    t: int
+    h: int
+    hq: int
+    hkv: int
+    inter: int
+    grid: int
+
+    @property
+    def ncl(self) -> int:               # clusters (blocks past the last take no GEMM job)
+        return self.grid // CS
+
+    @property
+    def passes(self) -> int:            # GEMM passes of TT tokens
+        return _cdiv(self.t, TT)
+
+    @property
+    def group(self) -> int:             # query heads per kv head
+        return self.hq // self.hkv
+
+    @property
+    def pairs(self) -> int:             # query-head pairs of a kv head (an attention unit's)
+        return _cdiv(self.group, 2)
+
+    @property
+    def nqb(self) -> int:               # query blocks of QB rows
+        return _cdiv(self.t, QB)
+
+    @property
+    def n_norm(self) -> int:
+        return _cdiv(self.t, NT)
+
+    @property
+    def shares(self) -> int:            # token shares: CS a pass (one rank's epilogue rows)
+        return self.passes * CS
+
+    def share(self, sh: int) -> Tuple[int, int]:
+        """Tokens [lo, hi) of share sh: rank sh % CS's rows of pass sh // CS
+        (hi <= lo: the share is empty)."""
+        p, r = divmod(sh, CS)
+        return (p * TT + r * TT // CS, min(self.t, p * TT + (r + 1) * TT // CS))
+
+    def shares_of(self, lo: int, hi: int):
+        """The non-empty shares holding tokens of [lo, hi)."""
+        return [sh for sh in range(self.shares)
+                if max(lo, self.share(sh)[0]) < min(hi, self.share(sh)[1])]
+
+    def gemm(self, stage: int) -> Tuple[int, int]:
+        """(K, N) of a GEMM stage."""
+        qdim = self.hq * HEAD_DIM
+        return {QKV: (self.h, qdim + 2 * self.hkv * HEAD_DIM), SO: (qdim, self.h),
+                CQ: (self.h, qdim), CO: (qdim, self.h), GU: (self.h, 2 * self.inter),
+                DN: (self.inter, self.h)}[stage]
+
+    def units(self, stage: int) -> int:
+        """Units of a stage: GEMM jobs (qkv: a head of 128 columns; gate-up:
+        64 gate and the matching 64 up columns; the rest 64 columns), norm
+        units of NT tokens, attention units (kv head, query-head pair, QB
+        query rows)."""
+        if stage in GEMMS:
+            n = self.gemm(stage)[1]
+            if stage == QKV:
+                return n // HEAD_DIM
+            return _cdiv(self.inter, 64) if stage == GU else _cdiv(n, 64)
+        if stage in NORM_KIND:
+            return self.n_norm
+        return self.hkv * self.pairs * self.nqb
+
+    def k_ranges(self, stage: int) -> Tuple[Tuple[int, int], ...]:
+        """Each cluster rank's K steps [begin, end) of a GEMM job: contiguous,
+        in rank order (the order the partial tiles are summed in); in the
+        64-column stages an even count, the two warpgroups taking alternate
+        steps."""
+        steps = _cdiv(self.gemm(stage)[0], KSTEP)
+        per = _cdiv(steps, CS)
+        if stage not in MODE_A:
+            per = _cdiv(per, 2) * 2
+        return tuple((min(r * per, steps), min((r + 1) * per, steps)) for r in range(CS))
+
+    @property
+    def regions(self) -> Tuple[int, ...]:
+        """Byte offsets of the scratch regions, each rounded up to 256 bytes,
+        and last the total."""
+        t, qdim = self.t, self.hq * HEAD_DIM
+        sizes = (t * self.h * 2,) * 3 + (qdim * t * 2, self.hkv * HEAD_DIM * t * 2,
+                                         self.hkv * HEAD_DIM * t * 2, t * qdim * 2, t * qdim * 2,
+                                         t * qdim * 4, t * self.inter * 2)
+        out = [0]
+        for n in sizes:
+            out.append(out[-1] + _cdiv(n, 256) * 256)
+        return tuple(out)
+
+    @property
+    def groups(self) -> Tuple[int, ...]:
+        """Word offsets of the sync-word groups (norm units by kind, qkv
+        heads, self-attention by kv head, cross-q tiles, cross-attention by kv
+        head, the three residual stages, gate-up, the leaving count), and last
+        the total."""
+        words = (3, self.units(QKV), self.hkv, self.units(CQ), self.hkv, 3, 1, 1)
+        out = [0]
+        for n in words:
+            out.append(out[-1] + n)
+        return tuple(out)
+
+    def per_layer(self, group: str) -> int:
+        """How much one layer raises each counter of ``group``."""
+        if group == "norm":
+            return self.n_norm
+        if group in ("self", "cross"):
+            return self.pairs * self.nqb
+        return CS * self.passes
+
+
+@functools.lru_cache(maxsize=64)
+def dit_plan(t: int, h: int, hq: int, hkv: int, inter: int, grid: int) -> DitPlan:
+    return DitPlan(t, h, hq, hkv, inter, grid)
+
+
+def block_queue(plan: DitPlan, block: int, n_layers: int):
+    """The items block ``block`` runs, in order: (layer, stage, unit, pass,
+    phase).  A GEMM job j goes to cluster j % ncl, whose blocks each run its
+    ACC, RED and SYNC phases for every pass; unit u of any other stage to the
+    block at position u % grid of the rank-major order (rank 0 of every
+    cluster first), so that consecutive units land in different clusters."""
+    c, r = divmod(block, CS)
+    clustered = c < plan.ncl
+    pos = r * plan.ncl + c if clustered else block
+    queue = []
+    for li in range(n_layers):
+        for s in range(len(STAGES)):
+            if s in GEMMS:
+                if clustered:
+                    for j in range(c, plan.units(s), plan.ncl):
+                        for p in range(plan.passes):
+                            queue += [(li, s, j, p, ph) for ph in (ACC, RED, SYNC)]
+            else:
+                queue += [(li, s, u, 0, UNIT) for u in range(pos, plan.units(s), plan.grid)]
+    return queue
+
+
+def _heads(plan: DitPlan, kv: int, pair: int):
+    g = plan.group
+    return [kv * g + 2 * pair + i for i in range(2) if 2 * pair + i < g]
+
+
+def _attn_unit(plan: DitPlan, u: int):
+    """(kv head, query-head pair, query block) of attention unit u."""
+    return u // (plan.pairs * plan.nqb), (u // plan.nqb) % plan.pairs, u % plan.nqb
+
+
+def unit_waits(plan: DitPlan, li: int, stage: int, u: int, rank: int = 0):
+    """The counters (group, index, least value) an ACC phase or a unit
+    waits for before it reads (the kernel's wait_item); counters grow from 0
+    through the launch."""
+    done = lambda group: plan.per_layer(group) * (li + 1)      # noqa: E731
+    if stage in NORM_KIND:
+        if stage == NORM_SA:
+            prev = plan.units(DN) * plan.per_layer("resid") * li
+            return [("resid", RESID[DN], prev)] if li else []
+        src = SO if stage == NORM_CA else CO
+        return [("resid", RESID[src], plan.units(src) * done("resid"))]
+    if stage in PANEL:
+        return [("norm", PANEL[stage], done("norm"))]
+    if stage in (SO, CO):
+        sb, se = plan.k_ranges(stage)[rank]
+        kvs = sorted({h // plan.group for h in range(sb, se)})
+        return [("self" if stage == SO else "cross", g, done("self")) for g in kvs]
+    if stage == DN:
+        return [("gu", 0, plan.units(GU) * done("gu"))]
+    kv, pair, _ = _attn_unit(plan, u)
+    heads = _heads(plan, kv, pair)
+    if stage == SELF:
+        tiles = heads + [plan.hq + kv, plan.hq + plan.hkv + kv]
+        return [("qkv", t, done("qkv")) for t in tiles]
+    return [("cq", 2 * h + i, done("cq")) for h in heads for i in range(2)]
+
+
+def unit_signal(plan: DitPlan, stage: int, u: int, phase: int):
+    """The counter (group, index) an item raises when it is done (None: no
+    counter): a GEMM job's RED phase in every rank and pass, every other
+    unit once."""
+    if phase in (ACC, SYNC):
+        return None
+    if stage in GEMMS:
+        if stage in RESID:
+            return "resid", RESID[stage]
+        return ("qkv", u) if stage == QKV else ("cq", u) if stage == CQ else ("gu", 0)
+    if stage in NORM_KIND:
+        return "norm", NORM_KIND[stage]
+    return ("self" if stage == SELF else "cross"), _attn_unit(plan, u)[0]
+
+
+def _pass_keys(plan: DitPlan, p: int, size: int):
+    """Indices of the ``size``-token groups holding tokens of pass p."""
+    lo, hi = p * TT, min((p + 1) * TT, plan.t)
+    return range(lo // size, _cdiv(hi, size))
+
+
+def unit_accesses(plan: DitPlan, li: int, stage: int, u: int, p: int, phase: int,
+                  rank: int = 0):
+    """(reads, writes) of an item's scratch and residual, as region keys:
+    ("x", share, 64-column tile) with a share one rank's rows of a pass
+    (:meth:`DitPlan.share`; layer 0's first residual reads the input x0
+    instead); ("xa", kind, norm unit); ("qkv", head tile, share); ("attn_s" |
+    "attn_c", head, query block); ("qc", 64-column tile, share); ("act",
+    gate-up job, share)."""
+    if phase == SYNC:
+        return [], []
+    pass_tokens = (p * TT, min((p + 1) * TT, plan.t))
+    if phase == ACC:
+        sb, se = plan.k_ranges(stage)[rank]
+        if stage in PANEL:
+            return [("xa", PANEL[stage], g) for g in _pass_keys(plan, p, NT)], []
+        if stage in (SO, CO):
+            name = "attn_s" if stage == SO else "attn_c"
+            return [(name, h, q) for h in range(sb, se) for q in _pass_keys(plan, p, QB)], []
+        blocks = range(2 * sb, min(2 * se, plan.units(GU)))         # 64-column act blocks
+        return [("act", j, sh) for j in blocks for sh in plan.shares_of(*pass_tokens)], []
+    if phase == RED:
+        sh = p * CS + rank
+        lo, hi = plan.share(sh)
+        if hi <= lo:
+            return [], []
+        if stage in RESID:
+            reads = [] if (stage == SO and li == 0) else [("x", sh, u)]
+            return reads, [("x", sh, u)]
+        name = {QKV: "qkv", CQ: "qc", GU: "act"}[stage]
+        return [], [(name, u, sh)]
+    if stage in NORM_KIND:
+        kind = NORM_KIND[stage]
+        reads = [] if (stage == NORM_SA and li == 0) else \
+            [("x", sh, tile) for sh in plan.shares_of(u * NT, (u + 1) * NT)
+             for tile in range(plan.units(SO))]
+        return reads, [("xa", kind, u)]
+    kv, pair, qb = _attn_unit(plan, u)
+    heads = _heads(plan, kv, pair)
+    q_shares = plan.shares_of(qb * QB, (qb + 1) * QB)
+    if stage == SELF:
+        reads = [("qkv", h, sh) for h in heads for sh in q_shares]
+        reads += [("qkv", t, sh) for t in (plan.hq + kv, plan.hq + plan.hkv + kv)
+                  for sh in plan.shares_of(0, plan.t)]
+        return reads, [("attn_s", h, qb) for h in heads]
+    reads = [("qc", 2 * h + i, sh) for h in heads for i in range(2) for sh in q_shares]
+    return reads, [("attn_c", h, qb) for h in heads]
 
 
 def _weights(layers: Dict[str, Any]):
@@ -60,28 +359,6 @@ def _weights(layers: Dict[str, Any]):
     return (sa["qkv_proj"]["kernel"], sa["o_proj"]["kernel"],
             ca["q_proj"]["kernel"], ca["o_proj"]["kernel"],
             mlp["gateup_proj"]["kernel"], mlp["down_proj"]["kernel"])
-
-
-def _rows_smem(d: int, lk: int, r: int) -> int:
-    """A unit's q rows, scores and output sums (f32)."""
-    return (MAXR * d + r * lk + r * d) * 4
-
-
-def _smem(d: int, lk: int, r: int, kt: int) -> int:
-    """Dynamic shared memory of one block (mirror of smem_bytes in the .cu):
-    the GEMM tiles, or an attention unit with a K / V tile of ``kt`` rows."""
-    return max(GEMM_SMEM, _rows_smem(d, lk, r) + kt * (d + 2) * 2, (THREADS // 32) * d * 4)
-
-
-def _attn_shape(d: int, lk: int):
-    """(query rows a unit, K / V rows a tile): 8 rows unless the scores of
-    that many would pass ATTN_SMEM_TARGET; then as many K / V rows as fit in
-    ATTN_SMEM (all of them where they do), at least MIN_TILE."""
-    r = MAXR
-    while r > 1 and _rows_smem(d, lk, r) > ATTN_SMEM_TARGET:
-        r //= 2
-    kt = (ATTN_SMEM - _rows_smem(d, lk, r)) // ((d + 2) * 2)
-    return r, max(MIN_TILE, min(lk, kt))
 
 
 def supported(layers: Dict[str, Any], cfg, b: int, t: int, lc: int) -> bool:
@@ -106,11 +383,11 @@ def supported(layers: Dict[str, Any], cfg, b: int, t: int, lc: int) -> bool:
             return False
     if h % ch or (qdim + 2 * kvdim) % ch or cfg.intermediate_size % ch:
         return False
-    if cfg.head_dim % 128 or t % 8 or t < 8:
+    if cfg.head_dim != HEAD_DIM or h % 128 or t % 8 or t < 8:
         return False
     if ws[0].num_layers > MAX_LAYERS:
         return False
-    return _smem(cfg.head_dim, max(t, lc), 1, MIN_TILE) <= MAX_SMEM
+    return max(t, lc) <= LK_MAX
 
 
 # ---------------------------------------------------------------------------
@@ -197,38 +474,63 @@ def dit_layers_mega_plain(layers, cfg, x, k_stack, v_stack, timestep_proj, cos, 
 # kernel
 # ---------------------------------------------------------------------------
 
-def _contig(t, dtype, dev, name):
-    if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
-        raise ValueError(f"dit_mega: {name} must be a contiguous {dtype} tensor on {dev}, "
-                         f"got {t.dtype} on {t.device}")
-    return t
-
-
-def split_k(grid: int, t: int, k: int, n: int) -> int:
-    """Split-K count of one GEMM: enough units to fill the grid, at least four
-    32-row blocks a split, at most MAX_SPLIT; every split non-empty."""
-    tiles = -(-t // GEMM_TILE) * -(-n // GEMM_TILE)
-    nkb = k // BLOCK
-    s = max(1, min(grid // tiles, nkb // 4, MAX_SPLIT))
-    per = -(-nkb // s)
-    return -(-nkb // per)
-
-
-STAGES = ("qkv", "heads", "self-attn", "o_proj", "rows (self)", "cross q", "cross-attn",
-          "cross o_proj", "rows (cross)", "gate-up", "act", "down", "rows (mlp)")
-
-
 def stage_times(stamps: torch.Tensor, n_layers: int) -> Dict[str, float]:
     """ms per launch by stage (summed over the layers) from the ``stamps``
-    (int64 [2 + 13 L]) of one launch; "init" is the first AdaLN.  Each stage's
-    time runs to the grid barrier after it."""
+    (int64 [2 + 11 L]) of one launch: block 0's clock at the launch's start,
+    after its rings' first copies ("setup") and when it finished each of its
+    stages, waits included."""
     t = stamps.cpu().double() / 1e6
     n = len(STAGES)
-    out = {"init": float(t[1] - t[0])}
+    out = {"setup": float(t[1] - t[0])}
     for s_i, name in enumerate(STAGES):
         out[name] = sum(float(t[2 + n * li + s_i] - t[1 + n * li + s_i])
                         for li in range(n_layers))
     return out
+
+
+def _contig(t, dtype, dev, name, shape=None):
+    if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
+        raise ValueError(f"dit_mega: {name} must be a contiguous {dtype} tensor on {dev}, "
+                         f"got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"dit_mega: {name} {tuple(t.shape)} where {tuple(shape)} is expected")
+    if t.data_ptr() % 16:
+        raise ValueError(f"dit_mega: {name} must be 16-byte aligned (the kernel copies it "
+                         "in 16-byte pieces)")
+    return t
+
+
+# scratch and sync words per (device, stream, plan): the kernel leaves its sync
+# words at 0, so they are zeroed once, when made
+_buffers: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_grid: Dict[int, int] = {}
+# the C entry's 8-byte slots (csrc/dit_mega.cu enum Slot)
+_SLOTS = struct.Struct(f"<{51 + len(REGIONS) + 1 + len(GROUPS) + 1}q")
+
+
+def _buffers_for(dev, stream: int, plan: DitPlan):
+    key = (dev, stream, plan)
+    buf = _buffers.get(key)
+    if buf is None:
+        buf = (torch.empty(plan.regions[-1], dtype=torch.uint8, device=dev),
+               torch.zeros(plan.groups[-1], dtype=torch.int32, device=dev))
+        _buffers[key] = buf
+    return buf
+
+
+def default_grid(dev) -> int:
+    """Blocks of the launch: CS x the clusters the card holds at once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _grid:
+        grid = _build.lib().acestep_dit_mega_grid()
+        if grid <= 0:
+            raise RuntimeError(f"dit_mega: occupancy query gave {grid} blocks")
+        _grid[idx] = grid
+    return _grid[idx]
+
+
+def _bits(v: float) -> int:
+    return struct.unpack("<i", struct.pack("<f", v))[0]
 
 
 def dit_layers_mega(layers, cfg, x, k_stack, v_stack, timestep_proj, cos, sin,
@@ -236,10 +538,11 @@ def dit_layers_mega(layers, cfg, x, k_stack, v_stack, timestep_proj, cos, sin,
                     stamps: Optional[torch.Tensor] = None):
     """Every decoder layer of one Euler step -> x [1, T, H] f32 (arguments as
     :func:`dit_layers_mega_plain`).  The caller checks :func:`supported`
-    first; ``grid`` overrides the cooperative grid (0: from the occupancy
-    query); ``stamps`` (int64 [2 + 13 L] on the card) receives the card's
-    clock in ns at the launch's start, after the first AdaLN and after each
-    of the 13 stages of every layer (:func:`stage_times` reads them)."""
+    first; ``grid`` overrides the launch's blocks (0: :func:`default_grid`;
+    a grid the card cannot hold at once is refused and raises); ``stamps``
+    (int64 [2 + 11 L] on the card) receives block 0's clock in ns at the
+    launch's start, after its rings' first copies and when it finished each
+    of the 11 stages of every layer (:func:`stage_times` reads them)."""
     if x.device.type == "cpu":
         return dit_layers_mega_plain(layers, cfg, x, k_stack, v_stack, timestep_proj, cos,
                                      sin, sliding_flags, enc_mask_add)
@@ -253,15 +556,14 @@ def dit_layers_mega(layers, cfg, x, k_stack, v_stack, timestep_proj, cos, sin,
         raise ValueError("dit_mega: sliding flags or cross K/V do not match the layers")
     dev = x.device
     hq, inter = cfg.num_attention_heads, cfg.intermediate_size
-    qdim = hq * d
-    ptrs = []
-    for qt, (k, n) in zip(_weights(layers), ((h, qdim + 2 * hkv * d), (qdim, h), (h, qdim),
-                                             (qdim, h), (h, 2 * inter), (inter, h))):
-        if tuple(qt.shape) != (k, n) or tuple(qt.data.shape) != (n_layers, k, n):
-            raise ValueError(f"dit_mega: weight {tuple(qt.data.shape)} where "
-                             f"({n_layers}, {k}, {n}) is expected")
-        ptrs += [_contig(qt.data, torch.int8, dev, "weight data").data_ptr(),
-                 _contig(qt.scales, torch.float32, dev, "weight scales").data_ptr()]
+    plan = dit_plan(t, h, hq, hkv, inter, int(grid) if grid > 0 else default_grid(dev))
+    ptrs, scales = [], []
+    for qt, stage in zip(_weights(layers), GEMMS):
+        k, n = plan.gemm(stage)
+        _contig(qt.data, torch.int8, dev, "weight data", (n_layers, k, n))
+        _contig(qt.scales, torch.float32, dev, "weight scales", (n_layers, k // 32, n))
+        ptrs.append(qt.data.data_ptr())
+        scales.append(qt.scales.data_ptr())
     sa, ca = layers["self_attn"], layers["cross_attn"]
     small = [layers["self_attn_norm"], layers["cross_attn_norm"], layers["mlp_norm"],
              layers["scale_shift_table"], sa["q_norm"], sa["k_norm"], ca["q_norm"]]
@@ -271,52 +573,30 @@ def dit_layers_mega(layers, cfg, x, k_stack, v_stack, timestep_proj, cos, sin,
         if tuple(s.shape) != shape or s.device != dev:
             raise ValueError(f"dit_mega: layer tensor {tuple(s.shape)} on {s.device} where "
                              f"{shape} on {dev} is expected")
-    ks, vs = ks.to(torch.bfloat16).contiguous(), vs.to(torch.bfloat16).contiguous()
-    x0 = x.reshape(t, h).float().contiguous()
+    ks = _contig(ks.to(torch.bfloat16).contiguous(), torch.bfloat16, dev, "cross K")
+    vs = _contig(vs.to(torch.bfloat16).contiguous(), torch.bfloat16, dev, "cross V")
+    x0 = _contig(x.reshape(t, h).float().contiguous(), torch.float32, dev, "x")
     tproj = tproj.contiguous()
-    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    cos = _contig(cos.float().contiguous(), torch.float32, dev, "cos", (t, d))
+    sin = _contig(sin.float().contiguous(), torch.float32, dev, "sin", (t, d))
     encm = enc_mask_add.reshape(lc).float().contiguous()
-    for name, a, shape in (("cos", cos, (t, d)), ("sin", sin, (t, d))):
-        if tuple(a.shape) != shape:
-            raise ValueError(f"dit_mega: {name} {tuple(a.shape)} where {shape} is expected")
-    lk = max(t, lc)
-    r, kt = _attn_shape(d, lk)
-    lib = _build.lib()
-    if grid <= 0:
-        grid = lib.acestep_dit_mega_grid(lib.acestep_dit_mega_smem(d, lk, r, kt))
-        if grid <= 0:
-            raise RuntimeError(f"dit_mega: occupancy query gave {grid} blocks")
-    gemms = ((h, qdim + 2 * hkv * d), (qdim, h), (h, qdim), (qdim, h), (h, 2 * inter),
-             (inter, h))
-    splits = [split_k(grid, t, k, n) for k, n in gemms]
+    if stamps is not None:
+        _contig(stamps, torch.int64, dev, "stamps", (2 + len(STAGES) * n_layers,))
+    stream = _build.stream_ptr(x)
+    scratch, sync = _buffers_for(dev, stream, plan)
     out = torch.empty((t, h), dtype=torch.float32, device=dev)
-    bf = torch.bfloat16
-    scratch = [torch.empty(n, dtype=bf, device=dev)
-               for n in (t * h, hq * t * d, hkv * t * d, hkv * t * d, t * qdim, t * inter)]
-    part = torch.empty(max(s * t * n for s, (_, n) in zip(splits, gemms)),
-                       dtype=torch.float32, device=dev)
-    sync = torch.zeros(2, dtype=torch.int32, device=dev)
-    ptrs += [a.data_ptr() for a in small]
-    ptrs += [a.data_ptr() for a in (ks, vs, x0, tproj, cos, sin, encm, out)]
-    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
-                               or stamps.numel() < 2 + len(STAGES) * n_layers):
-        raise ValueError(f"dit_mega: stamps must be int64 [{2 + len(STAGES) * n_layers}] "
-                         f"on {dev}")
-    ptrs += [a.data_ptr() for a in scratch] + [part.data_ptr(), sync.data_ptr(),
-                                                None if stamps is None else stamps.data_ptr()]
-    dims = [n_layers, t, h, hq, hkv, d, inter, lc, cfg.sliding_window, r, int(small_f32),
-            *splits, kt]
     words = [0] * 8
     for li, f in enumerate(sliding_flags):
         if f:
             words[li // 64] |= 1 << (li % 64)
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    c_flags = (ctypes.c_uint64 * 8)(*words)
-    err = lib.acestep_dit_mega(
-        ctypes.cast(c_ptrs, ctypes.c_void_p), ctypes.cast(c_dims, ctypes.c_void_p),
-        ctypes.cast(c_flags, ctypes.c_void_p), float(cfg.rms_norm_eps),
-        float(1.0 / math.sqrt(d)), int(grid), _build.stream_ptr(x))
+    words = [w - (1 << 64) if w >= 1 << 63 else w for w in words]
+    err = _build.lib().acestep_dit_mega(_SLOTS.pack(
+        *ptrs, *scales, *(a.data_ptr() for a in small), int(small_f32),
+        ks.data_ptr(), vs.data_ptr(), x0.data_ptr(), tproj.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), encm.data_ptr(), out.data_ptr(), scratch.data_ptr(), sync.data_ptr(),
+        0 if stamps is None else stamps.data_ptr(), n_layers, t, h, hq, hkv, inter, lc,
+        cfg.sliding_window, plan.grid, _bits(cfg.rms_norm_eps), _bits(1.0 / math.sqrt(d)),
+        stream, *words, *plan.regions, *plan.groups))
     _build.check("acestep_dit_mega", err)
     MEGA.count((t, lc))
     return out[None]

@@ -24,7 +24,8 @@ Phases, each announced by a timestamped line:
                 read in place; N % 128 != 0 takes the q8_0 kernel
   4. check_dit  the DiT Euler-step megakernel (row 12) at full width (T 128,
                 Lc 320), with and without padded condition tokens, through 2
-                and 24 random q8_0 layers, plus a 2-layer case whose sliding
+                and 24 random q8_0 layers, at T 256 (two GEMM passes) through
+                2 layers, plus a 2-layer case whose sliding
                 window (16) masks: each depth held to 1.5x the drift measured
                 in this run between its plain version on the card and on the
                 CPU (max abs error over the peak, never tighter than 5e-3),
@@ -103,7 +104,8 @@ Phases, each announced by a timestamped line:
                 by its launches (rows 9 / 10 also as CUDA graphs beside SDPA;
                 row 11 with its stage split; row 6 at each shape also as CUDA
                 graphs beside torch.matmul);
-                the DiT megakernel beside the layer-path step
+                the DiT megakernel at T 256 and 128 with its stage split, beside
+                the layer-path step
 Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -160,6 +162,7 @@ INT8_OPS = 1979e12
 # request A: the DiT megakernel's path (frames fill the 256-frame bucket)
 DIT_A_S = 10.24
 DIT_T, DIT_LC = 128, 320       # patch tokens; packed condition (64 + 256 token buckets)
+DIT_T2 = 256                   # 20.48 s: the longest full-width T row 12 is timed at
 DIT_REL_MIN = 5e-3             # test_dit_mega.py:93 (atol 5e-3 at outputs of order 1)
 DIT_FAULTS = ("sliding band not applied", "gate_msa dropped")
 
@@ -624,7 +627,8 @@ def dit_fault_args(fault, layers, args):
 def check_dit_mega(full_cfg) -> float:
     """Row 12 against its plain version at full width (T 128, Lc 320) through
     the first 2 and all 24 layers, with and without padded condition tokens,
-    and a 2-layer case whose sliding window (16) masks, at DRIFT_FACTOR x the
+    at T 256 through 2 layers (padded), and a 2-layer case whose sliding
+    window (16) masks, at DRIFT_FACTOR x the
     drift of the plain version (card against CPU) at that depth, never tighter
     than DIT_REL_MIN; reruns bit-identical; each planted fault rejected.
     Returns the max abs error."""
@@ -653,11 +657,15 @@ def check_dit_mega(full_cfg) -> float:
             cases.append((n_l, f"{name} {n_l} layers T={DIT_T} Lc={DIT_LC}"
                           f"{' padded' if padded else ''}", cfg_d, lay,
                           dit_mega_inputs(init, cfg_d, n_l, DIT_T, DIT_LC, padded)))
+        if n_l == 2:            # 20.48 s: two GEMM passes of 128 tokens
+            cases.append((2, f"{name} 2 layers T={DIT_T2} Lc={DIT_LC} padded", cfg_d, lay,
+                          dit_mega_inputs(init, cfg_d, 2, DIT_T2, DIT_LC, True)))
     cases.append((2, f"{name} 2 layers T={DIT_T} Lc={DIT_LC} padded, window 16",
                    band_cfg, layers_band, band_args))
     err, runs, t_cpu = 0.0, [], 0.0
     for depth, label, cfg_d, lay, args in cases:
-        require(dit_mega.supported(lay, cfg_d, 1, DIT_T, DIT_LC), f"{label}: gate declines")
+        t_tok = args[0].shape[1]
+        require(dit_mega.supported(lay, cfg_d, 1, t_tok, DIT_LC), f"{label}: gate declines")
         got = dit_mega.dit_layers_mega(lay, cfg_d, *args)
         again = dit_mega.dit_layers_mega(lay, cfg_d, *args)
         require(bool(torch.equal(got, again)), f"{label}: two launches on the same inputs differ")
@@ -1730,11 +1738,22 @@ def run() -> int:
 
     dparams = engine_a.dit_params
     init = RandomInit(torch.device("cuda"), 900, "q8_0")
-    margs = dit_mega_inputs(init, dit_cfg, dit_cfg.num_hidden_layers, DIT_T, DIT_LC)
-    ms = cuda_ms(lambda: dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs), iters=10)
+    n_l = dit_cfg.num_hidden_layers
+    for t_tok in (DIT_T2, DIT_T):
+        margs = dit_mega_inputs(init, dit_cfg, n_l, t_tok, DIT_LC)
+        ms = cuda_ms(lambda: dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs),
+                     iters=10)
+        b, by = dit_bound(dit_cfg, t_tok, DIT_LC)
+        stamps = torch.zeros(2 + len(dit_mega.STAGES) * n_l, dtype=torch.int64, device="cuda")
+        dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs, stamps=stamps)
+        split = dit_mega.stage_times(stamps, n_l)
+        log(f"  {dit_name} T={t_tok} Lc={DIT_LC} {n_l} layers: kernel {ms:.4f} ms a launch, "
+            f"bound {b:.4f} ({by}); by stage (block 0's clock at the end of each of its "
+            f"stages, ms summed over the layers): "
+            + json.dumps({k: round(v, 4) for k, v in split.items()})
+            + f"; total {sum(split.values()):.4f}")
     plain = cuda_ms(lambda: dit_mega.dit_layers_mega_plain(dparams["layers"], dit_cfg, *margs),
                     iters=2)
-    b, by = dit_bound(dit_cfg, DIT_T, DIT_LC)
     hs = init.normal((1, 2 * DIT_T, dit_cfg.audio_acoustic_hidden_dim), 1.0).bfloat16()
     ctx = init.normal((1, 2 * DIT_T, dit_cfg.context_dim), 1.0).bfloat16()
     enc = tdit.compute_condition(dparams, dit_cfg,
@@ -1746,13 +1765,6 @@ def run() -> int:
     step = {mega: cuda_ms(lambda: tdit.forward(
         dparams, dit_cfg, hs, tt, tt, ctx, kv, encoder_attn_mask=encm, dit_mega=mega,
         int8_act=mega, cross_kv_stacked=kv_st), iters=5) for mega in (True, False)}
-    stamps = torch.zeros(2 + len(dit_mega.STAGES) * dit_cfg.num_hidden_layers,
-                         dtype=torch.int64, device="cuda")
-    dit_mega.dit_layers_mega(dparams["layers"], dit_cfg, *margs, stamps=stamps)
-    split = dit_mega.stage_times(stamps, dit_cfg.num_hidden_layers)
-    log(f"  {dit_name} by stage (one launch, ms summed over the layers, each to its grid "
-        f"barrier): " + json.dumps({k: round(v, 4) for k, v in split.items()})
-        + f"; total {sum(split.values()):.4f}")
     n_launch = served["A"][0][dit_name]
     log(f"  {dit_name} T={DIT_T} Lc={DIT_LC} {dit_cfg.num_hidden_layers} layers: kernel "
         f"{ms:.4f} ms a launch, plain {plain:.4f}, bound {b:.4f} ({by}); the whole DiT step "

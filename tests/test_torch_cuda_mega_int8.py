@@ -10,12 +10,12 @@ CPU mode).  The file imports neither JAX nor the JAX package:
 Tolerances: row 6 bit-identical (both sum the same exact f32 terms in K order),
 at every layer-scan shape of request B, for layer li != 0 of a stacked weight,
 and on a rerun.
-Row 12: two correct summation orders of the megakernel's f32 sums part a
-little, and that grows with depth; each test measures it (the plain version on
-the card against the same on the CPU) and holds the kernel to 1.5x that drift
-in max abs error over the output's peak, never tighter than 5e-3 (the JAX
-megakernel test's absolute bound, test_dit_mega.py:93, at outputs of order 1),
-and reruns bit-identical.
+Row 12 (at T = 128, 256 and a ragged 40; Lc = 320 and 64): two correct
+summation orders of the megakernel's f32 sums part a little, and that grows
+with depth; each test measures it (the plain version on the card against the
+same on the CPU) and holds the kernel to 1.5x that drift in max abs error over
+the output's peak, never tighter than 5e-3 (the JAX megakernel test's absolute
+bound, test_dit_mega.py:93, at outputs of order 1), and reruns bit-identical.
 """
 
 import dataclasses
@@ -169,18 +169,25 @@ FULL = DiTConfig()
 BAND = dataclasses.replace(FULL, sliding_window=16)
 
 
-@pytest.mark.parametrize("cfg,n_layers,padded", [(FULL, 2, False), (FULL, 2, True),
-                                                 (BAND, 2, True), (FULL, 24, True)],
-                         ids=["2L", "2L-padded", "2L-band16", "24L-padded"])
-def test_dit_mega_vs_plain(dev, cfg, n_layers, padded):
+@pytest.mark.parametrize("cfg,n_layers,padded,t,lc", [
+    (FULL, 2, False, 128, 320), (FULL, 2, True, 128, 320), (BAND, 2, True, 128, 320),
+    (FULL, 24, True, 128, 320), (FULL, 2, True, 256, 320), (FULL, 2, True, 40, 320),
+    (FULL, 2, True, 128, 64), (FULL, 2, True, 128, 640)],
+    ids=["2L", "2L-padded", "2L-band16", "24L-padded", "2L-T256", "2L-T40", "2L-Lc64-padded",
+         "2L-Lc640-padded"])
+def test_dit_mega_vs_plain(dev, cfg, n_layers, padded, t, lc):
+    """T = 256 runs two GEMM passes of 128 tokens; T = 40 a ragged token
+    tile (and a ragged query block); Lc = 64 one key chunk; Lc = 640 streams
+    every K / V chunk (past the 320 keys whose K chunks stay in shared
+    memory)."""
     cfg = dataclasses.replace(cfg, num_hidden_layers=n_layers,
                               layer_types=cfg.layer_types[:n_layers])
-    layers, args = mega_case(cfg, n_layers, 128, 320, n_layers, dev, padded)
-    assert tdm.supported(layers, cfg, 1, 128, 320)
+    layers, args = mega_case(cfg, n_layers, t, lc, n_layers, dev, padded)
+    assert tdm.supported(layers, cfg, 1, t, lc)
     n0 = tdm.MEGA.launches
     got = tdm.dit_layers_mega(layers, cfg, *args)
     torch.cuda.synchronize()
-    assert tdm.MEGA.launches == n0 + 1 and got.shape == (1, 128, cfg.hidden_size)
+    assert tdm.MEGA.launches == n0 + 1 and got.shape == (1, t, cfg.hidden_size)
     assert bool(torch.isfinite(got).all())
     ref = tdm.dit_layers_mega_plain(layers, cfg, *args)
     cpu = tdm.dit_layers_mega_plain(weights.tree_to(layers, "cpu"), cfg,
@@ -194,6 +201,15 @@ def test_dit_mega_vs_plain(dev, cfg, n_layers, padded):
         no_band = tdm.dit_layers_mega_plain(layers, cfg, *args[:6], [False] * n_layers,
                                             args[7])
         assert _rel(no_band, ref) > bound
+
+
+def test_dit_mega_smem_matches_the_kernel(dev):
+    """The wrapper's shared-memory mirror equals the kernel's entry point,
+    and the launch's grid is a whole number of clusters that fit."""
+    from acestep_tpu_torch.ops.cuda import _build
+    assert _build.lib().acestep_dit_mega_smem() == tdm.SMEM
+    grid = tdm.default_grid(torch.device("cuda"))
+    assert grid > 0 and grid % tdm.CS == 0
 
 
 def test_dit_mega_refused_launch_raises(dev):

@@ -126,8 +126,9 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((REPO / "acestep_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + [REPO / "tools" / "time_vae_resunit.py", REPO / "tools" / "vae_resunit_errors.py",
-                REPO / "tools" / "time_lm_kernels.py",
-                REPO / "tests" / "test_torch_decode_mega_plan.py"]
+                REPO / "tools" / "time_lm_kernels.py", REPO / "tools" / "time_dit_mega.py",
+                REPO / "tests" / "test_torch_decode_mega_plan.py",
+                REPO / "tests" / "test_torch_dit_mega_plan.py"]
              + sorted((REPO / "tests").glob("test_torch_cuda_*.py")))
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
@@ -138,7 +139,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/ops/cuda/dit_mega.py",
                    "acestep_tpu_torch/ops/cuda/qmm_int8.py",
                    "acestep_tpu_torch/models/random_init.py", "tools/time_lm_kernels.py",
-                   "tests/test_torch_decode_mega_plan.py"):
+                   "tests/test_torch_decode_mega_plan.py", "tools/time_dit_mega.py",
+                   "tests/test_torch_dit_mega_plan.py"):
         assert module in names, module
     for path in files:
         for name in _imports(path):
