@@ -8,6 +8,9 @@ sliding window), cross-attention to the packed condition, SwiGLU MLP.  Dual
 timestep embeddings (t and t - r), patchify via conv1d-as-linear and unpatchify
 via convtranspose1d-as-linear.  Cross-attention K/V are computed once per
 request (:func:`compute_all_cross_kv`) and reused by every diffusion step.
+Self-attention is dense and masked below 1536 patch tokens and blocked from
+there on (ops/blocked_attention.py: banded for sliding layers, flash for full
+ones), in the decoder and in the encoder stacks alike.
 
 The decoder runs on stacked layers (:func:`stack_params`) with q||k||v and
 gate||up fused into one weight stream each (:func:`fuse_params`), as the JAX
@@ -40,13 +43,15 @@ from acestep_tpu_torch.ops.cuda import dit_mega as _dit_mega
 from acestep_tpu_torch.ops import (
     apply_rope,
     attention,
+    banded_attention,
+    flash_attention,
     linear,
     make_attention_mask,
     rms_norm,
     rope_cos_sin,
-    self_attention_masks,
     silu,
     sinusoidal_timestep_embedding,
+    use_blocked_attention,
 )
 from acestep_tpu_torch.ops.qlinear import concat_weights_n
 
@@ -63,7 +68,8 @@ def _silu_as(x: torch.Tensor, dtype) -> torch.Tensor:
 # building blocks
 # ---------------------------------------------------------------------------
 
-def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, mask):
+def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn):
+    """``attn_fn(q, k, v)`` carries the masking (:func:`_make_self_attn_fns`)."""
     b, l, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     if "qkv_proj" in p:
@@ -79,8 +85,25 @@ def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, mask):
     k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
     v = v.transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
-    out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
+    out = attn_fn(q, k, v).transpose(1, 2).reshape(b, l, nh * hd)
     return linear(out, p["o_proj"]["kernel"])
+
+
+def _make_self_attn_fns(cfg: DiTConfig, seq_len: int, kv_valid, device):
+    """(sliding_fn, full_fn) of the decoder / encoder stacks (dit.py:234-288).
+
+    From the blocked-attention threshold on, sliding layers take
+    :func:`banded_attention` and full layers :func:`flash_attention`, and no
+    T x T mask or score tensor is built; below it both are dense masked
+    attention."""
+    if use_blocked_attention(seq_len):
+        return (lambda q, k, v: banded_attention(q, k, v, cfg.sliding_window, kv_valid),
+                lambda q, k, v: flash_attention(q, k, v, kv_valid))
+    sliding_mask = make_attention_mask(seq_len, seq_len, kv_valid=kv_valid,
+                                       sliding_window=cfg.sliding_window, device=device)
+    full_mask = make_attention_mask(seq_len, seq_len, kv_valid=kv_valid, device=device)
+    return (lambda q, k, v: attention(q, k, v, mask=sliding_mask),
+            lambda q, k, v: attention(q, k, v, mask=full_mask))
 
 
 def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor):
@@ -253,7 +276,7 @@ def forward(
     if attn_mask is not None:
         am = F.pad(attn_mask, (0, pad)) if pad else attn_mask
         patch_valid = am.reshape(b, tp, patch).amax(dim=-1)
-    sliding_mask, full_mask = self_attention_masks(tp, cfg.sliding_window, patch_valid, dev)
+    attn_sliding, attn_full = _make_self_attn_fns(cfg, tp, patch_valid, dev)
     cross_mask = (make_attention_mask(tp, encoder_attn_mask.shape[1],
                                       kv_valid=encoder_attn_mask)
                   if encoder_attn_mask is not None else None)
@@ -268,7 +291,7 @@ def forward(
         normed = rms_norm(x, p["self_attn_norm"], cfg.rms_norm_eps)
         normed = normed * (1.0 + scale_msa) + shift_msa
         x = x + _self_attention(p["self_attn"], cfg, normed, cos, sin,
-                                sliding_mask if sliding else full_mask) * gate_msa
+                                attn_sliding if sliding else attn_full) * gate_msa
 
         normed = rms_norm(x, p["cross_attn_norm"], cfg.rms_norm_eps)
         x = x + _cross_attention(p["cross_attn"], cfg, normed, cross_kv_cache[li], cross_mask)
@@ -304,12 +327,12 @@ def _encoder_stack(layers, cfg: DiTConfig, x, valid):
     cos, sin = rope_cos_sin(torch.arange(l, device=x.device), cfg.head_dim,
                             base=cfg.rope_theta)
     cos, sin = cos.to(dtype), sin.to(dtype)
-    sliding_mask, full_mask = self_attention_masks(l, cfg.sliding_window, valid, x.device)
+    attn_sliding, attn_full = _make_self_attn_fns(cfg, l, valid, x.device)
     for i, p in enumerate(iter_layers(layers)):
         sliding = i < len(cfg.layer_types) and cfg.layer_types[i] == "sliding_attention"
         xn = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
         x = x + _self_attention(p["self_attn"], cfg, xn, cos, sin,
-                                sliding_mask if sliding else full_mask)
+                                attn_sliding if sliding else attn_full)
         x = x + _mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
     return x
 

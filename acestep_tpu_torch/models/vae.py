@@ -18,12 +18,17 @@ Res units dispatch as in the JAX decoder (vae.py:227-275): a 128-channel block
 runs its three units as one fused trio kernel, a 256-channel block unit by unit
 through the fused unit kernel (``ops.cuda.vae_resunit``); wider blocks and the
 transposed convs are plain torch convs.
+
+The tiled decode (vae.py:484-700) groups its overlap-discard windows by (size,
+trims), stacks each group's (window, item) rows window-major and decodes at
+most ``max_window_batch`` rows a call; ``fused_decode_windows_int16`` decodes
+one segment of a segmented decode at its own scale.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -151,11 +156,62 @@ def _window_plan(t: int, chunk_frames: int, overlap_frames: Optional[int]):
     return windows
 
 
-def _decode_items(params, cfg, latents, max_window_batch: int) -> torch.Tensor:
-    """decode() with at most ``max_window_batch`` items per call."""
-    parts = [decode(params, cfg, latents[i:i + max_window_batch])
-             for i in range(0, latents.shape[0], max_window_batch)]
+def _decode_rows(params, cfg, latents, max_rows: int) -> torch.Tensor:
+    """decode() of a stack of rows, at most ``max_rows`` rows a call."""
+    wb = max(1, min(max_rows, latents.shape[0]))
+    parts = [decode(params, cfg, latents[i:i + wb]) for i in range(0, latents.shape[0], wb)]
     return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+
+
+def _decode_window_groups(params, cfg, latents, windows, max_window_batch: int):
+    """Decode and trim every window of ``latents [B, T, 64]``; returns the
+    pieces in window order, each [B, L_w, C] (vae.py:484-562).
+
+    Windows are grouped by (size, head trim, tail trim); a group's (window,
+    item) rows are stacked window-major, ``[Nw * B, size, 64]``, decoded at
+    most ``max_window_batch`` rows a call (a merged batch is bounded like a
+    long song's window stack), trimmed, and split back per window."""
+    b = latents.shape[0]
+    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    for idx, (cs, ce, ws, we) in enumerate(windows):
+        groups.setdefault((we - ws, cs - ws, we - ce), []).append(idx)
+    decoded = {}
+    for (size, tf0, tf1), idxs in groups.items():
+        stacked = torch.cat([latents[:, windows[i][2]:windows[i][3]] for i in idxs], dim=0)
+        audio = _decode_rows(params, cfg, stacked, max_window_batch)
+        ups = audio.shape[1] / size
+        t0, t1 = int(round(tf0 * ups)), int(round(tf1 * ups))
+        trimmed = audio[:, t0:audio.shape[1] - t1]
+        for j, i in enumerate(idxs):
+            decoded[i] = trimmed[j * b:(j + 1) * b]
+    return [decoded[i] for i in range(len(windows))]
+
+
+def _to_int16(pieces: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate along time, then quantize at the WAV output scale
+    ``32767 * min(1, 0.99 / peak)``: (i16 flat [B*L*C] in C order, scale [])."""
+    full = (torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]).float()
+    peak = full.abs().amax()
+    one = torch.ones((), dtype=torch.float32, device=full.device)
+    # a true division, as XLA's (a scalar over a tensor is a reciprocal times
+    # the scalar in torch: one f32 step off)
+    scale = 32767.0 * torch.where(peak > 0.99, (0.99 * one) / torch.clamp(peak, min=1e-12),
+                                  one)
+    i16 = torch.clamp(torch.round(full * scale), -32768.0, 32767.0).to(torch.int16)
+    return i16.reshape(-1), scale
+
+
+@torch.no_grad()
+def fused_decode_windows_int16(
+    params: Params, cfg: VAEConfig, latents: torch.Tensor,
+    windows: Sequence[Tuple[int, int, int, int]], max_window_batch: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One segment of a segmented tiled decode: the (segment-relative) windows
+    of ``latents [1, T_seg, 64]`` decoded, trimmed, concatenated and quantized
+    at the segment's own peak scale -> (i16 flat, scale []).  The caller
+    reconciles the segments to the lowest scale."""
+    return _to_int16(_decode_window_groups(params, cfg, latents, list(windows),
+                                           max_window_batch))
 
 
 @torch.no_grad()
@@ -166,23 +222,12 @@ def fused_tiled_decode_int16(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tiled decode, overlap trim, concat, global peak and int16 quantization:
     returns (audio_i16 flat [B*L*C] in C order, scale []) with
-    ``scale = 32767 * min(1, 0.99 / peak)`` (the WAV output scale)."""
-    b, t, _ = latents.shape
-    if chunk_frames >= t:
-        pieces: List[torch.Tensor] = [_decode_items(params, cfg, latents, max_window_batch)]
-    else:
-        pieces = []
-        for cs, ce, ws, we in _window_plan(t, chunk_frames, overlap_frames):
-            audio = _decode_items(params, cfg, latents[:, ws:we], max_window_batch)
-            ups = audio.shape[1] / (we - ws)
-            t0, t1 = int(round((cs - ws) * ups)), int(round((we - ce) * ups))
-            pieces.append(audio[:, t0:audio.shape[1] - t1])
-    full = (torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]).float()
-    peak = full.abs().amax()
-    one = torch.ones((), dtype=torch.float32, device=full.device)
-    scale = 32767.0 * torch.where(peak > 0.99, 0.99 / torch.clamp(peak, min=1e-12), one)
-    i16 = torch.clamp(torch.round(full * scale), -32768.0, 32767.0).to(torch.int16)
-    return i16.reshape(-1), scale
+    ``scale = 32767 * min(1, 0.99 / peak)`` (the WAV output scale).  At most
+    ``max_window_batch`` (item, window) rows are decoded a call."""
+    if chunk_frames >= latents.shape[1]:
+        return _to_int16([_decode_rows(params, cfg, latents, max_window_batch)])
+    windows = _window_plan(latents.shape[1], chunk_frames, overlap_frames)
+    return _to_int16(_decode_window_groups(params, cfg, latents, windows, max_window_batch))
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-from .blocked_attention import self_attention_masks
+from .blocked_attention import banded_attention, flash_attention, use_blocked_attention
 from .nn import (
     apply_rope,
     attention,
@@ -15,12 +15,14 @@ __all__ = [
     "StackedWeight",
     "apply_rope",
     "attention",
+    "banded_attention",
+    "flash_attention",
     "linear",
     "make_attention_mask",
     "rms_norm",
     "rope_cos_sin",
     "rotate_half",
-    "self_attention_masks",
     "silu",
     "sinusoidal_timestep_embedding",
+    "use_blocked_attention",
 ]

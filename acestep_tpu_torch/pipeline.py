@@ -8,10 +8,15 @@ Flow:
   8-step flow-matching Euler loop (DiT)
   tiled VAE decode -> int16 waveform at the global peak scale
 
-Latent lengths are bucketed (frames rounded up to FRAME_BUCKET); validity is
-carried by the attention mask and trailing frames are sliced off before the
-decode.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; asking for the card where there is none raises.
+Latent lengths are bucketed (frames rounded up to FRAME_BUCKET); each item's
+validity (``durations_s``: a batch may mix durations in one bucket) is carried
+by the attention mask and trailing frames are sliced off before the decode.
+The memory planner (memory_planner.py) clamps the batch before launch and
+picks the decode chunk and window batch.  A batch-1 song of two or more decode
+windows is decoded in segments, each quantized at its own scale and then
+reconciled to the lowest (``segment_windows``, ``reconcile_segments``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+asking for the card where there is none raises.
 
 ``AceStepEngine(dit_mega=True)`` and ``(int8_act=True)`` stand for the JAX
 package's ``ACESTEP_TPU_DIT_MEGA=1`` and ``ACESTEP_TPU_INT8_ACT=1`` (see
@@ -25,12 +30,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from acestep_tpu_torch import sampler
+from acestep_tpu_torch import memory_planner, sampler
 from acestep_tpu_torch.config import DiTConfig, QwenConfig, VAEConfig
 from acestep_tpu_torch.constants import (
     FRAME_BUCKET, LATENT_RATE, MAX_DURATION_S, MIN_DURATION_S, TOKEN_BUCKETS,
@@ -39,8 +45,7 @@ from acestep_tpu_torch.models import dit, qwen, vae
 from acestep_tpu_torch.models.random_init import RandomInit
 from acestep_tpu_torch.ops.qlinear import precast_quant_scales
 
-VAE_CHUNK_FRAMES = 512      # decode window (the JAX planner's choice on a large card)
-VAE_WINDOW_BATCH = 4
+SEGMENT_FRAMES = 2048       # latent frames a decode segment aims at (pipeline.py:239-250)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +73,62 @@ def pack_sequences(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
     order = torch.argsort((mask == 0).to(torch.int32), dim=1, stable=True)
     packed_h = torch.gather(hidden, 1, order[:, :, None].expand(-1, -1, hidden.shape[2]))
     return packed_h, torch.gather(mask, 1, order)
+
+
+def segment_windows(windows, chunk_frames: int):
+    """The segmented decode's plan (pipeline.py:724-822): the decode windows
+    cut into segments of ``min(max(2, SEGMENT_FRAMES // chunk), len // 2)``
+    windows, each as (latent start, latent end, windows relative to it)."""
+    n = min(max(2, SEGMENT_FRAMES // chunk_frames), len(windows) // 2)
+    out = []
+    for s0 in range(0, len(windows), n):
+        seg = windows[s0:s0 + n]
+        lo, hi = seg[0][2], seg[-1][3]
+        out.append((lo, hi, [(cs - lo, ce - lo, ws - lo, we - lo) for cs, ce, ws, we in seg]))
+    return out
+
+
+def decode_chunk(plan: memory_planner.Plan) -> int:
+    """The plan's VAE decode chunk, clamped to [32, 512]."""
+    return int(min(max(plan.vae_chunk_frames, 32), 512))
+
+
+def decode_one_pass(vae_params, vae_cfg: VAEConfig, latents: torch.Tensor,
+                    plan: memory_planner.Plan):
+    """[B, T, C] latents decoded in one pass at the plan's chunk and window
+    batch: (int16 [B, L * channels], scale), on the device."""
+    return vae.fused_tiled_decode_int16(vae_params, vae_cfg, latents,
+                                        chunk_frames=decode_chunk(plan),
+                                        max_window_batch=plan.vae_window_batch)
+
+
+def decode_segments(vae_params, vae_cfg: VAEConfig, latents: torch.Tensor,
+                    plan: memory_planner.Plan):
+    """The segmented decode (pipeline.py:724-822) of [1, T, C] latents,
+    launched on the device: one (int16, scale) a segment, each at its own
+    scale; [] when the plan's chunk cuts fewer than two windows."""
+    chunk, t = decode_chunk(plan), latents.shape[1]
+    windows = vae._window_plan(t, chunk, None) if chunk < t else []
+    if len(windows) < 2:
+        return []
+    return [vae.fused_decode_windows_int16(vae_params, vae_cfg, latents[:, lo:hi], rel,
+                                           max_window_batch=plan.vae_window_batch)
+            for lo, hi, rel in segment_windows(windows, chunk)]
+
+
+def reconcile_segments(fetched, channels: int):
+    """Segments decoded at their own scales -> ([1, L_g, C] int16 segments at
+    the lowest scale, that scale).  A segment whose peak passed 0.99 is
+    re-quantized as ``round(i16 * (scale / s_g))``: at most one step of double
+    rounding."""
+    scale = min(s_g for _, s_g in fetched)
+    segments = []
+    for i16_g, s_g in fetched:
+        seg = i16_g.reshape(1, -1, channels)
+        if s_g != scale:
+            seg = np.round(seg.astype(np.float32) * (scale / s_g)).astype(np.int16)
+        segments.append(seg)
+    return segments, scale
 
 
 def _token_bucket(n: int) -> int:
@@ -107,7 +168,9 @@ def encode_condition(dit_params, text_params, dit_cfg: DiTConfig, text_cfg: Qwen
 
 @dataclasses.dataclass
 class GenerationRequest:
-    """One text2music request, pre-tokenized."""
+    """One text2music request, pre-tokenized.  ``durations_s`` gives each item
+    of a batch its own duration (configs[3]'s mixed-duration batches share one
+    frame bucket); unset, every item lasts ``duration_s``."""
 
     duration_s: float = 30.0
     style_token_ids: Optional[np.ndarray] = None      # [B, Ls]
@@ -119,23 +182,42 @@ class GenerationRequest:
     shift: float = 3.0
     timesteps: Optional[Sequence[float]] = None
     batch_size: int = 1
+    durations_s: Optional[Sequence[float]] = None
 
 
-@dataclasses.dataclass
 class GenerationResult:
-    """16-bit PCM ``audio_i16 [B, L, C]`` at ``audio_scale`` (f32 = i16 / scale)."""
+    """16-bit PCM at ``audio_scale`` (f32 = i16 / scale).  A segmented decode
+    keeps its time-contiguous segments (``pcm16_segments()``); ``audio_i16
+    [B, L, C]`` concatenates them on first use.  ``audio_lengths`` holds each
+    item's valid samples (a merged batch pads shorter items to its longest)."""
 
-    latents: np.ndarray                 # [B, T_valid, 64]
-    sample_rate: int
-    time_costs: Dict[str, float]
-    seeds: List[int]
-    audio_lengths: List[int]
-    audio_i16: np.ndarray
-    audio_scale: float
+    def __init__(self, latents: np.ndarray, sample_rate: int, time_costs: Dict[str, float],
+                 seeds: List[int], audio_lengths: List[int], audio_scale: float,
+                 audio_i16: Optional[np.ndarray] = None,
+                 audio_i16_segments: Optional[List[np.ndarray]] = None):
+        self.latents = latents                  # [B, T_valid, 64]
+        self.sample_rate = sample_rate
+        self.time_costs = time_costs
+        self.seeds = seeds
+        self.audio_lengths = audio_lengths
+        self.audio_scale = float(audio_scale)
+        self._audio_i16 = audio_i16
+        self._segments = audio_i16_segments
+
+    @property
+    def audio_i16(self) -> np.ndarray:
+        if self._audio_i16 is None:
+            self._audio_i16 = np.concatenate(self._segments, axis=1)
+        return self._audio_i16
+
+    def pcm16_segments(self) -> List[np.ndarray]:
+        """Time-contiguous int16 segments [B, L_g, C] (one when whole)."""
+        return self._segments if self._segments is not None else [self.audio_i16]
 
     @property
     def audio(self) -> np.ndarray:
-        return self.audio_i16.astype(np.float32) / np.float32(self.audio_scale)
+        return np.multiply(self.audio_i16, np.float32(1.0 / self.audio_scale),
+                           dtype=np.float32)
 
 
 class AceStepEngine:
@@ -158,10 +240,27 @@ class AceStepEngine:
         self.text_params = precast_quant_scales(qwen.stack_params(text_params))
         self.text_cfg = text_cfg
         self._silence: Optional[torch.Tensor] = None
+        self._param_bytes: Optional[int] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def plan(self, batch: int, frames: int) -> memory_planner.Plan:
+        """The memory plan of ``batch`` items of ``frames`` latent frames on
+        this engine's device."""
+        if self._param_bytes is None:
+            self._param_bytes = (memory_planner.tree_bytes(self.dit_params)
+                                 + memory_planner.tree_bytes(self.vae_params))
+        return memory_planner.plan_request(
+            self.dit_cfg, self.vae_cfg, self._param_bytes, batch, frames,
+            memory_planner.detect_device_bytes(self.device))
+
+    def max_batch_for_frames(self, frames: int) -> int:
+        """Admission cap at the frame bucket of ``frames``: the continuous
+        batcher's ``max_batch_for``, so a merge never exceeds what the plan
+        admits (the engine's own clamp would truncate a merged request)."""
+        return max(1, self.plan(64, bucket_frames(frames)).max_batch)
 
     def _silence_frames(self, t: int) -> torch.Tensor:
         """[1, t, 64] silence src latents, tiled from a 64-frame encode."""
@@ -211,12 +310,23 @@ class AceStepEngine:
     @torch.no_grad()
     def generate(self, req: GenerationRequest,
                  noise: Optional[torch.Tensor] = None) -> GenerationResult:
-        """text2music for one request.  ``noise [B, T_bucket, 64]`` overrides the
-        seeded draw (tests pass the JAX package's noise)."""
+        """text2music for one request (pipeline.py:528-863).  ``noise [B,
+        T_bucket, 64]`` overrides the seeded draw (tests pass the JAX
+        package's noise)."""
         t0 = time.perf_counter()
         time_costs: Dict[str, float] = {}
         b = req.batch_size
-        t_valid = frames_for_duration(req.duration_s)
+        # admission control: clamp the batch before launch rather than run
+        # out of memory mid-flight
+        plan = self.plan(b, frames_for_duration(req.duration_s))
+        if plan.max_batch < b:
+            warnings.warn(f"memory planner clamped batch {b} -> {plan.max_batch} "
+                          f"({plan.detail})", stacklevel=2)
+            b = plan.max_batch
+        durations = list(req.durations_s) if req.durations_s else [req.duration_s] * b
+        durations = (durations * b)[:b]
+        item_valid = [frames_for_duration(d) for d in durations]
+        t_valid = max(item_valid)
         t = bucket_frames(t_valid)
 
         enc, enc_mask = self.build_condition(req, b)
@@ -230,9 +340,9 @@ class AceStepEngine:
             noise = self.make_noise(seeds, t)
         noise = noise.to(self.device, torch.float32)
         attn_mask = None
-        if t != t_valid:
-            attn_mask = (torch.arange(t, device=self.device)[None, :] < t_valid).to(
-                torch.int32).expand(b, -1)
+        if t != t_valid or len(set(item_valid)) > 1:
+            valid = torch.tensor(item_valid, dtype=torch.int64, device=self.device)[:, None]
+            attn_mask = (torch.arange(t, device=self.device)[None, :] < valid).to(torch.int32)
         schedule = sampler.get_timestep_schedule(req.shift, req.timesteps)
 
         t1 = time.perf_counter()
@@ -246,15 +356,35 @@ class AceStepEngine:
 
         latents = torch.nan_to_num(latents, nan=0.0, posinf=0.0, neginf=0.0)
         latents_valid = latents[:, :t_valid]
+        audio_lengths = [v * self.vae_cfg.hop_length for v in item_valid]
+        channels = self.vae_cfg.audio_channels
 
         t2 = time.perf_counter()
-        i16, scale = vae.fused_tiled_decode_int16(
-            self.vae_params, self.vae_cfg, latents_valid, chunk_frames=VAE_CHUNK_FRAMES,
-            max_window_batch=VAE_WINDOW_BATCH)
+        # segmented decode: segments of about SEGMENT_FRAMES (at least two
+        # windows), each quantized at its own scale, then reconciled
+        handles = (decode_segments(self.vae_params, self.vae_cfg, latents_valid, plan)
+                   if b == 1 else [])
+        if handles:
+            self._sync()
+            time_costs["vae_compute_time_cost"] = time.perf_counter() - t2
+            t_fetch = time.perf_counter()
+            fetched = [(i16_g.cpu().numpy(), float(s_g)) for i16_g, s_g in handles]
+            latents_np = latents_valid.float().cpu().numpy()
+            time_costs["audio_fetch_time_cost"] = time.perf_counter() - t_fetch
+            segments, scale = reconcile_segments(fetched, channels)
+            time_costs["vae_time_cost"] = time.perf_counter() - t2
+            time_costs["vae_overlapped"] = 1.0
+            time_costs["total_time_cost"] = time.perf_counter() - t0
+            return GenerationResult(
+                latents=latents_np, sample_rate=self.vae_cfg.sampling_rate,
+                time_costs=time_costs, seeds=seeds, audio_lengths=audio_lengths,
+                audio_scale=scale, audio_i16_segments=segments)
+
+        i16, scale = decode_one_pass(self.vae_params, self.vae_cfg, latents_valid, plan)
         self._sync()
         time_costs["vae_compute_time_cost"] = time.perf_counter() - t2
         t_fetch = time.perf_counter()
-        audio_i16 = i16.cpu().numpy().reshape(b, -1, self.vae_cfg.audio_channels)
+        audio_i16 = i16.cpu().numpy().reshape(b, -1, channels)
         audio_scale = float(scale.item())
         latents_np = latents_valid.float().cpu().numpy()
         time_costs["audio_fetch_time_cost"] = time.perf_counter() - t_fetch
@@ -262,8 +392,7 @@ class AceStepEngine:
         time_costs["total_time_cost"] = time.perf_counter() - t0
         return GenerationResult(
             latents=latents_np, sample_rate=self.vae_cfg.sampling_rate,
-            time_costs=time_costs, seeds=seeds,
-            audio_lengths=[t_valid * self.vae_cfg.hop_length] * b,
+            time_costs=time_costs, seeds=seeds, audio_lengths=audio_lengths,
             audio_i16=audio_i16, audio_scale=audio_scale)
 
 

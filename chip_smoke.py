@@ -55,13 +55,46 @@ Phases, each announced by a timestamped line:
                 non-constant, finite positive scale; a small q4_0, q4_k and q6_k
                 engine each on the card against the same engine on the CPU, at
                 the Q8_0 gate
- 11. checkpoint a small q4_k engine written with the port's save_params to a
+ 11. check_long banded_attention and flash_attention against dense masked
+                attention (ops.nn.attention, in blocks of query rows) at the
+                DiT's shapes (16 / 8 heads, D 128, bf16, B 2, item 1's last 300
+                keys padded), T 1536 and 7552, valid rows only: the band within
+                one bf16 step of the peak (2^-7), flash within two (2^-6: it
+                rounds its unnormalised probabilities); a band one wider and a
+                flash block that skips its rescale each rejected
+ 12. long       a full-width q4_k engine serves 120 s (3000 frames, 1536 patch
+                tokens: the first blocked length) and 600 s (15000 frames in a
+                15104 bucket, 7552 tokens), one warm-up and one timed request
+                each: q4_k, q8_0 (proj_in, K = 384), vae_res_unit and
+                vae_res_trio launched in each; int16 of exactly frames x 1920 x
+                2 samples, finite, not silent; decoded in segments (10 at 600 s,
+                vae_overlapped 1), both runs equal; the segments decoded again
+                equal the result, and reconciled they equal a one-pass decode
+                (pipeline.decode_one_pass) of the same latents (bit for bit in
+                a segment decoded at the global scale, one step in one
+                re-quantized); time_costs, peak device memory, launches
+ 13. batch      configs[3]'s mix (10, 10.2, 30, 30.5, 60, 120, 300, 600 s,
+                style from default_rng(1), seeds 0-7) through
+                ContinuousBatcher(engine.generate, max_batch 8, max_wait 0.3 s,
+                pad_ratio 2.5, max_batch_for=engine.max_batch_for_frames), two
+                passes: each merge's plan and time_costs, the wall time, merged
+                sizes and audio seconds per wall second of each pass; every
+                future back with its own length; then a merged 30 s item, the
+                same noise given to each run: its latents beside a 60 s partner
+                equal bit for bit its latents beside a 55 s one; against the
+                same request alone, latents within 40 dB and audio within 3 dB
+                of what one decode of the two latents explains (to one overlap
+                before its end); the merged decode within the Q8_0 gate of its
+                latents decoded alone; two planted merge faults (a wrong valid
+                length, swapped condition rows) each rejected
+ 14. checkpoint a small q4_k engine written with the port's save_params to a
                 temporary directory, read back through
                 serving.launch.build_engine(dir) on the card: the same int16
                 output, exactly
- 12. recheck    every (kernel, shape) the served requests launched that phase 3
-                did not cover, against the plain version
- 13. check_lm   the LM decode kernels against their plain versions at the
+ 15. recheck    every (kernel, shape) the served requests launched that phase 3
+                did not cover, against the plain version: configs[3]'s merged
+                batches and the merged-vs-solo runs too
+ 16. check_lm   the LM decode kernels against their plain versions at the
                 0.6B planner's full width (16 query / 8 kv heads, 28 layers of
                 int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
                 ragged, T = 1024 (one T block) and lengths on chunk and T-block
@@ -75,9 +108,9 @@ Phases, each announced by a timestamped line:
                 bit-identical with the occupancy grid (20 reruns of the B = 4,
                 28-layer case); then four planted faults in the plain version,
                 each of which one depth rejects
- 14. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
+ 17. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
                 quantized head, int8 KV), drawn on the card
- 15. lm_serve   configs[2]'s LM request through
+ 18. lm_serve   configs[2]'s LM request through
                 LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
                 100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
                 0.95): three times on the default path (megakernel), once with
@@ -86,20 +119,21 @@ Phases, each announced by a timestamped line:
                 int8_act on, once on the default path (the head through row 6)
                 and once with decode_mega=0 (every layer linear too);
                 time_costs and launches of every request
- 16. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 11
- 17. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
+ 19. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 15
+ 20. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
                 same LM on the CPU (plain versions), both fed the CPU's tokens:
                 logits of the first two steps within 2e-2 of the peak (4e-2
                 with int8 activations), the top token equal at every step whose
                 CPU top-1/top-2 gap is at least 2e-2 of the peak; on the
                 megakernel, and with int8_act on the layer scan
- 18. timing     kernel, plain-version and library-call times at the served
+ 21. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
                 CUDA-core bound logged beside), the
                 dequant-matmul shapes also as a CUDA graph (device time) with
                 their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
+                rows 4, 7 and 8 also per 600 s request;
                 the LM kernels at three valid lengths of the request, weighted
                 by its launches (rows 9 / 10 also as CUDA graphs beside SDPA;
                 row 11 with its stage split; row 6 at each shape also as CUDA
@@ -165,6 +199,29 @@ DIT_T, DIT_LC = 128, 320       # patch tokens; packed condition (64 + 256 token 
 DIT_T2 = 256                   # 20.48 s: the longest full-width T row 12 is timed at
 DIT_REL_MIN = 5e-3             # test_dit_mega.py:93 (atol 5e-3 at outputs of order 1)
 DIT_FAULTS = ("sliding band not applied", "gate_msa dropped")
+# long songs (ROADMAP item 4) and configs[3] (tools/bench_configs.py:95-105)
+LONG_S = (120.0, 600.0)        # 3000 frames (1536 patch tokens) and 15000 (7552)
+LONG_T = (1536, 7552)          # the self-attention lengths of those buckets
+LONG_PAD = 300                 # padded keys of item 1 in check_long
+CONFIGS3_S = (10.0, 10.2, 30.0, 30.5, 60.0, 120.0, 300.0, 600.0)
+# blocked vs dense attention, max err / peak over valid rows.  CPU parity runs
+# (tests/test_torch_blocked_attention.py; and the port's own on the CPU at
+# T 1536 with these shapes) give 5.8e-4 for the band, the same function summed
+# in another order, and 5.6e-3 for flash, which rounds the unnormalised
+# probabilities to bf16 where dense attention rounds the normalised ones:
+# bounds of one bf16 step of the peak (2^-7) and of two (2^-6)
+BANDED_REL = 2.0 ** -7
+FLASH_REL = 2.0 ** -6
+# a merged item against the same request alone (merged_vs_solo).  On the CPU
+# its latents are equal bit for bit (tests/test_torch_batcher.py).  On the
+# H100 the kernels sum in an order that depends on M: the latents part by
+# 52.33 dB, and by -0.04 dB with the condition rows swapped; the bound lies
+# between.  A wrong valid length parts them by 51.44 dB: only the isolation
+# check, which is exact, sees it.  The random full-width decode magnifies the
+# latents' difference 29.69 dB, to 22.64 dB, as far as the two requests' audio
+# parts: that is held within 3 dB of what the decode explains
+MERGE_LAT_DB = 40.0
+MERGE_AUDIO_SLACK_DB = 3.0
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -720,6 +777,357 @@ def dit_bound(cfg, t, lc):
 
 
 # ---------------------------------------------------------------------------
+# long songs and configs[3]'s batch helpers
+# ---------------------------------------------------------------------------
+
+def blocked_case(t, seed, n_pad):
+    """DiT-shaped self-attention inputs on the card: [2, 16 | 8, t, 128] bf16,
+    item 1's last ``n_pad`` keys padded through kv_valid."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((2, 16, t, 128), generator=g, device="cuda").bfloat16()
+    k = torch.randn((2, 8, t, 128), generator=g, device="cuda").bfloat16()
+    v = torch.randn((2, 8, t, 128), generator=g, device="cuda").bfloat16()
+    valid = torch.ones((2, t), dtype=torch.int32, device="cuda")
+    valid[1, t - n_pad:] = 0
+    return q, k, v, valid
+
+
+def dense_attention(q, k, v, mask, rows: int = 1024):
+    """ops.nn.attention in blocks of query rows (the same function row by row;
+    the whole T x T score tensor of 7552 tokens would hold 7 GB)."""
+    import torch
+    from acestep_tpu_torch.ops.nn import attention
+
+    return torch.cat([attention(q[:, :, i:i + rows], k, v, mask[:, :, i:i + rows])
+                      for i in range(0, q.shape[2], rows)], dim=2)
+
+
+def valid_rel(got, ref, n_pad) -> float:
+    """Max abs error over the valid query rows (item 0's all, item 1's first
+    T - n_pad) over their peak: a fully masked row averages a different set
+    of keys in each function."""
+    t = ref.shape[2]
+    d = (got.float() - ref.float()).abs()
+    err = max(float(d[0].max()), float(d[1, :, :t - n_pad].max()))
+    peak = max(float(ref[0].float().abs().max()), float(ref[1, :, :t - n_pad].float().abs().max()))
+    return err / peak
+
+
+def flash_no_rescale(q, k, v, kv_valid, block_k=1024):
+    """Planted fault: ops.blocked_attention.flash_attention with a block that
+    skips its rescale (the running normaliser and accumulator keep their old
+    maximum's scale)."""
+    import torch
+    from acestep_tpu_torch.ops.nn import NEG_INF
+
+    b, hq, tq, d = q.shape
+    hkv = k.shape[1]
+    nb = -(-tq // block_k)
+    bias = torch.where(kv_valid.bool(), 0.0, NEG_INF).float()
+    qg = q.reshape(b, hkv, hq // hkv, tq, d).float()
+    m = torch.full((b, hkv, hq // hkv, tq, 1), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, tq, d), device=q.device)
+    for i in range(nb):
+        blk = slice(i * block_k, (i + 1) * block_k)
+        s = torch.matmul(qg, k[:, :, None, blk].float().transpose(-1, -2)) / math.sqrt(d)
+        s = s + bias[:, None, None, None, blk]
+        m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m)
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + torch.matmul(p.to(q.dtype).float(), v[:, :, None, blk].float())
+    return (acc / torch.clamp(l, min=1e-30)).reshape(b, hq, tq, d).to(q.dtype)
+
+
+def check_long_attention(window: int) -> None:
+    """banded_attention and flash_attention against dense masked attention on
+    the card at the DiT's shapes (T 1536 and 7552), valid rows only, each held
+    to its bound; a band one wider and a flash block without its rescale must
+    each fail that bound."""
+    import torch
+    from acestep_tpu_torch.ops import blocked_attention as ba
+    from acestep_tpu_torch.ops.nn import make_attention_mask
+
+    for i, t in enumerate(LONG_T):
+        q, k, v, valid = blocked_case(t, 70 + i, LONG_PAD)
+        ref_band = dense_attention(q, k, v, make_attention_mask(t, t, kv_valid=valid,
+                                                                sliding_window=window))
+        ref_full = dense_attention(q, k, v, make_attention_mask(t, t, kv_valid=valid))
+        band = ba.banded_attention(q, k, v, window, valid)
+        flash = ba.flash_attention(q, k, v, valid)
+        for label, got, ref, bound in (("banded", band, ref_band, BANDED_REL),
+                                       ("flash", flash, ref_full, FLASH_REL)):
+            require(bool(torch.isfinite(got).all()), f"{label} T={t}: non-finite output")
+            rel = valid_rel(got, ref, LONG_PAD)
+            log(f"  {label}_attention T={t} (Hq 16, Hkv 8, D 128, bf16, item 1 padded by "
+                f"{LONG_PAD}) vs dense masked attention: max err / peak over valid rows "
+                f"{rel:.3e} (<= {bound:.3e})")
+            require(rel <= bound, f"{label}_attention T={t} disagrees with dense attention")
+        for label, got, ref, bound in (
+                ("a band one wider", ba.banded_attention(q, k, v, window + 1, valid),
+                 ref_band, BANDED_REL),
+                ("a flash block that skips its rescale", flash_no_rescale(q, k, v, valid),
+                 ref_full, FLASH_REL)):
+            rel = valid_rel(got, ref, LONG_PAD)
+            log(f"  planted fault '{label}' T={t}: max err / peak {rel:.3e} -> "
+                f"{'rejected' if rel > bound else 'passes'}")
+            require(rel > bound, f"planted fault '{label}' passes at T={t}")
+        times = {name: cuda_ms(fn, iters=3) for name, fn in (
+            ("banded", lambda: ba.banded_attention(q, k, v, window, valid)),
+            ("flash", lambda: ba.flash_attention(q, k, v, valid)))}
+        log(f"  T={t}, B=2: banded {times['banded']:.3f} ms, flash {times['flash']:.3f} ms "
+            f"a call (plain torch, f32 matmuls)")
+        del q, k, v, ref_band, ref_full, band, flash
+        free_engine()
+
+
+def segments_vs_one_pass(engine, res, label: str) -> None:
+    """The request's segments decoded again on the card must equal its result,
+    and, reconciled, a one-pass decode (``pipeline.decode_one_pass``) of the
+    same latents: bit for bit in a segment decoded at the global scale, within
+    one int16 step in one re-quantized from its own."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+
+    lat = torch.from_numpy(res.latents).to("cuda")
+    plan = engine.plan(1, lat.shape[1])
+    fetched = [(i16.cpu().numpy(), float(s)) for i16, s in
+               pipeline.decode_segments(engine.vae_params, engine.vae_cfg, lat, plan)]
+    again, scale = pipeline.reconcile_segments(fetched, 2)
+    require(scale == res.audio_scale and all(
+        np.array_equal(a, b) for a, b in zip(again, res.pcm16_segments())),
+        f"{label}: the segments decoded again differ from the request's")
+    whole, whole_scale = pipeline.decode_one_pass(engine.vae_params, engine.vae_cfg, lat, plan)
+    whole = whole.cpu().numpy().reshape(1, -1, 2)
+    worst, at = [], 0
+    for (_, s_g), seg in zip(fetched, again):
+        diff = np.abs(seg.astype(np.int32) - whole[:, at:at + seg.shape[1]].astype(np.int32))
+        at += seg.shape[1]
+        limit = 0 if s_g == scale else 1
+        worst.append(int(diff.max()) - limit)
+        log(f"  {label}: segment of {seg.shape[1]} samples at scale {s_g:.9g} vs one pass: max "
+            f"diff {int(diff.max())} (<= {limit}), {int((diff > 0).sum())} samples differ")
+    log(f"  {label}: scale one pass {float(whole_scale):.9g}, reconciled {scale:.9g}")
+    require(at == whole.shape[1], f"{label}: segments cover {at} of {whole.shape[1]} samples")
+    require(float(whole_scale) == scale and max(worst) <= 0,
+            f"{label}: the reconciled segments disagree with the one-pass decode")
+
+
+def gate(ref, got):
+    """(cosine, SNR dB) of ``got`` against ``ref`` (the Q8_0 gate's metrics)."""
+    import numpy as np
+
+    ref, got = ref.ravel().astype(np.float64), got.ravel().astype(np.float64)
+    cos = float(ref @ got / (np.linalg.norm(ref) * np.linalg.norm(got)))
+    snr = float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-30)))
+    return cos, snr
+
+
+
+def serve_long(engine, dur, style, lyric, path):
+    """One warm-up and one timed request of ``dur`` seconds, each launching
+    every kernel of ``path``: exact length, finite, not silent, decoded in
+    segments (10 at 600 s), both runs equal, and the segments against a
+    one-pass decode.  Returns serve()'s results and counts."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+
+    key = f"{dur:g}s q4_k"
+    frames = pipeline.frames_for_duration(dur)
+    bucket = pipeline.bucket_frames(frames)
+    req = pipeline.GenerationRequest(duration_s=dur, style_token_ids=style,
+                                     lyric_token_ids=lyric, seeds=[1])
+    torch.cuda.reset_peak_memory_stats()
+    results, counts = serve(engine, req, f"{dur:g} s at q4_k", 2, path)
+    plan = engine.plan(1, frames)
+    log(f"{key}: {frames} frames in a {bucket}-frame bucket "
+        f"({bucket // engine.dit_cfg.patch_size} patch tokens); plan: chunk "
+        f"{plan.vae_chunk_frames}, window batch {plan.vae_window_batch}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over its requests; launches a "
+        "request: " + json.dumps({n: counts[0][n] for n in path}))
+    n = frames * engine.vae_cfg.hop_length
+    check_audio(results, n)
+    require(all(r.audio_i16.shape == (1, n, 2) for r in results),
+            f"{key}: audio_i16 of {[r.audio_i16.shape for r in results]}, {(1, n, 2)} expected")
+    last = results[-1]
+    n_seg = len(last.pcm16_segments())
+    log(f"{key}: {n_seg} decode segments, vae_overlapped "
+        f"{last.time_costs.get('vae_overlapped')}")
+    require(last.time_costs.get("vae_overlapped") == 1.0 and n_seg >= 2,
+            f"{key}: not decoded in segments")
+    require(dur != 600.0 or n_seg == 10, f"{key}: {n_seg} segments, 10 expected")
+    require(np.array_equal(results[0].audio_i16, last.audio_i16),
+            f"two runs of the {key} request differ")
+    segments_vs_one_pass(engine, last, key)
+    return results, counts
+
+
+def serve_configs3(engine, path):
+    """configs[3]'s mix through the ContinuousBatcher, two passes: every future
+    back with its own length, every kernel of ``path`` launched in each pass.
+    Returns each pass's (launches, shapes) by name, for the recheck."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+    from acestep_tpu_torch.serving.batcher import ContinuousBatcher
+
+    hop = engine.vae_cfg.hop_length
+    style = np.random.default_rng(1).integers(0, 150000, (1, 64))
+
+    def run_merged(req):
+        frames = pipeline.frames_for_duration(req.duration_s)
+        plan = engine.plan(req.batch_size, frames)
+        torch.cuda.reset_peak_memory_stats()
+        res = engine.generate(req)
+        log(f"  merged batch {list(req.durations_s)} s ({pipeline.bucket_frames(frames)}-frame "
+            f"bucket): plan max_batch {plan.max_batch}, chunk {plan.vae_chunk_frames}, window "
+            f"batch {plan.vae_window_batch}, detail {json.dumps(plan.detail)}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; time_costs "
+            + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
+        return res
+
+    batcher = ContinuousBatcher(run_merged, max_batch=8, max_wait_s=0.3, pad_ratio=2.5,
+                                max_batch_for=engine.max_batch_for_frames)
+    served = {}
+    batcher.start()
+    try:
+        for n_pass in range(2):
+            reset_counts()
+            done = len(batcher.stats["merged_sizes"])
+            t = time.perf_counter()
+            futs = [batcher.submit(pipeline.GenerationRequest(
+                duration_s=d, style_token_ids=style, seeds=[i]))
+                for i, d in enumerate(CONFIGS3_S)]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t
+            counts = served[f"configs[3] pass {n_pass}"] = snapshot_counts()
+            log(f"configs[3] pass {n_pass}: {len(outs)} requests ({sum(CONFIGS3_S):g} s of "
+                f"audio) in {wall:.3f} s wall, {sum(CONFIGS3_S) / wall:.2f} audio s per wall "
+                f"s; merged sizes {list(batcher.stats['merged_sizes'])[done:]}; launches "
+                + json.dumps({n: counts[0][n] for n in path}))
+            require(all(counts[0][n] > 0 for n in path),
+                    f"configs[3] pass {n_pass}: a kernel of the path was not launched")
+            for i, (d, r) in enumerate(zip(CONFIGS3_S, outs)):
+                n = pipeline.frames_for_duration(d) * hop
+                require(r.audio_lengths == [n] and r.seeds == [i] and r.audio_i16.shape[0] == 1
+                        and r.audio_i16.shape[1] >= n, f"configs[3] {d:g} s: audio_lengths "
+                        f"{r.audio_lengths}, shape {r.audio_i16.shape}, seeds {r.seeds}")
+                require(int(r.audio_i16[0, :n].max()) != int(r.audio_i16[0, :n].min()),
+                        f"configs[3] {d:g} s: silent audio")
+    finally:
+        batcher.stop()
+    return served
+
+
+def merged_vs_solo(engine):
+    """A merged 30 s item (its batch's bucket is 60 s's) against the same
+    request alone and against itself beside another partner, all given the
+    same noise (CUDA randn is not prefix-stable across sizes); then two
+    planted merge faults.  Returns the requests' (launches, shapes), for the
+    recheck.
+
+    - Isolation: the item's latents beside a 60 s partner equal, bit for bit,
+      its latents beside a 55 s one of another style and noise (one bucket,
+      one set of shapes, so one set of kernel orders).
+    - Solo: its latents within MERGE_LAT_DB of the request alone; the merged
+      decode within the Q8_0 gate of its own latents decoded alone; the two
+      requests' audio within MERGE_AUDIO_SLACK_DB of what those two
+      differences explain together (one batch-1 decode of the two latents:
+      the decode's magnification, measured here; and the merged decode's own).
+    - Faults: each breaks the isolation; the one marked also fails
+      MERGE_LAT_DB."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+    from acestep_tpu_torch.serving.batcher import merge_requests
+
+    hop, dev = engine.vae_cfg.hop_length, engine.device
+    c = engine.dit_cfg.audio_acoustic_hidden_dim
+    style, style2, style3 = (np.random.default_rng(s).integers(0, 150000, (1, 64))
+                             for s in (1, 2, 3))
+    solo = pipeline.GenerationRequest(duration_s=30.0, style_token_ids=style, seeds=[2])
+    merged = merge_requests([solo, pipeline.GenerationRequest(
+        duration_s=60.0, style_token_ids=style2, seeds=[4])])
+    other = merge_requests([solo, pipeline.GenerationRequest(
+        duration_s=55.0, style_token_ids=style3, seeds=[5])])
+    # (request, whether the solo bound must see it too)
+    faults = {"the item given its partner's valid length":
+              (dataclasses.replace(merged, durations_s=[60.0, 60.0]), False),
+              "the condition rows swapped":
+              (dataclasses.replace(merged, style_token_ids=merged.style_token_ids[::-1].copy(),
+                                   style_mask=merged.style_mask[::-1].copy()), True)}
+
+    def randn(seed):
+        return torch.randn((1, 1536, c), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+
+    noise = torch.cat([randn(11), randn(12)])
+    reset_counts()
+    res_m = engine.generate(merged, noise=noise)
+    res_o = engine.generate(other, noise=torch.cat([noise[:1], randn(13)]))
+    res_s = engine.generate(solo, noise=noise[:1, :768])
+    res_f = {label: engine.generate(req, noise=noise) for label, (req, _) in faults.items()}
+    counts = snapshot_counts()
+    n = pipeline.frames_for_duration(30.0)
+    # a merged decode reads the padded latents past the item's end: compare up
+    # to one decode overlap (64 frames) before it
+    cut = (n - 64) * hop
+    plan = engine.plan(1, n)
+
+    def decode_alone(latents):
+        """``latents`` [n, C] through the batch-1 one-pass decode, as f32."""
+        i16, scale = pipeline.decode_one_pass(
+            engine.vae_params, engine.vae_cfg,
+            torch.from_numpy(np.ascontiguousarray(latents[None])).to(dev), plan)
+        return i16.cpu().numpy().reshape(1, -1, 2)[0, :cut] / np.float32(float(scale))
+
+    def isolated(res):
+        """(equal, elements that differ) of the item's latents against its
+        latents beside the other partner."""
+        diff = int((res.latents[0, :n] != res_o.latents[0, :n]).sum())
+        return diff == 0, diff
+
+    iso = isolated(res_m)
+    lat = gate(res_s.latents[0], res_m.latents[0, :n])
+    same = gate(decode_alone(res_s.latents[0]), decode_alone(res_m.latents[0, :n]))
+    dec = gate(decode_alone(res_m.latents[0, :n]), res_m.audio[0, :cut])
+    audio = gate(res_s.audio[0, :cut], res_m.audio[0, :cut])
+    # the latents' difference through one decode and the merged decode's own,
+    # their difference powers added
+    audio_bound = -10 * math.log10(10 ** (-same[1] / 10) + 10 ** (-dec[1] / 10)) \
+        - MERGE_AUDIO_SLACK_DB
+    log(f"merged 30 s item (bucket 1536) beside 60 s vs beside 55 s of another style and "
+        f"noise: latents {'equal' if iso[0] else 'DIFFERENT'} ({iso[1]} elements differ)")
+    log(f"the item vs the request alone (bucket 768), same noise, (cosine, SNR dB): latents "
+        f"{lat[0]:.6f}, {lat[1]:.2f} (bound {MERGE_LAT_DB} dB); both latents through one "
+        f"batch-1 decode, to 64 frames before the end: {same[0]:.6f}, {same[1]:.2f} (the "
+        f"decode magnifies the latents' difference {lat[1] - same[1]:.2f} dB); the two "
+        f"requests' audio there: {audio[0]:.6f}, {audio[1]:.2f} (bound {audio_bound:.2f} "
+        f"dB); the merged decode vs the item's latents decoded "
+        f"alone: {dec[0]:.6f}, {dec[1]:.2f} (>= 0.999, >= 26 dB)")
+    rejected = {}
+    for label, res in res_f.items():
+        iso_f = isolated(res)
+        lat_f = gate(res_s.latents[0], res.latents[0, :n])
+        audio_f = gate(res_s.audio[0, :cut], res.audio[0, :cut])
+        rejected[label] = not iso_f[0] and (lat_f[1] < MERGE_LAT_DB or not faults[label][1])
+        log(f"  planted merge fault, {label}: isolation {iso_f[1]} elements differ; vs the "
+            f"request alone: latents {lat_f[0]:.6f}, {lat_f[1]:.2f}, audio {audio_f[0]:.6f}, "
+            f"{audio_f[1]:.2f}: {'rejected' if rejected[label] else 'NOT rejected'}")
+    require(all(rejected.values()), f"a planted merge fault passes: {rejected}")
+    require(iso[0], "a merged item's latents depend on its partner")
+    require(dec[0] >= 0.999 and dec[1] >= 26.0,
+            "a merged decode disagrees with the item's latents decoded alone")
+    require(lat[1] >= MERGE_LAT_DB and audio[1] >= audio_bound,
+            "a merged item disagrees with the same request served alone")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # LM planner helpers
 # ---------------------------------------------------------------------------
 
@@ -1253,8 +1661,7 @@ def run() -> int:
         after = snapshot_counts()[0]
         require(all(after[n] > before[n] for n in need),
                 f"small {quant} engine {knobs} on the card missed a kernel of {need}")
-        cos = float(ref @ got / (np.linalg.norm(ref) * np.linalg.norm(got)))
-        snr = float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-30)))
+        cos, snr = gate(ref, got)
         log(f"small {quant} engine {knobs}, card (kernels) vs CPU (plain): cosine {cos:.6f} "
             f"(>= 0.999), SNR {snr:.2f} dB (>= 26)")
         require(cos >= 0.999 and snr >= 26.0, f"card and CPU disagree on the small "
@@ -1307,6 +1714,28 @@ def run() -> int:
         check_audio(results[key], 1500 * vae_cfg.hop_length)
     for fmt in FOUR_BIT:
         card_vs_cpu(fmt, [names[fmt], unit, trio])
+
+    phase("check_long")
+    check_long_attention(dit_cfg.sliding_window)
+
+    phase("long")
+    t = time.perf_counter()
+    engine = pipeline.build_random_engine(device="cuda", quant="q4_k", seed=0)
+    torch.cuda.synchronize()
+    memory["q4_k long"] = torch.cuda.memory_allocated() / 2**30
+    log(f"full-width q4_k engine built on the card in {time.perf_counter() - t:.1f} s; "
+        f"device memory {memory['q4_k long']:.2f} GiB")
+    # row 4 on every decoder, encoder and text-encoder linear, row 1 where K = 384
+    path_long = [names["q4_k"], names["q8_0"], unit, trio]
+    for dur in LONG_S:
+        key = f"{dur:g}s q4_k"
+        results[key], served[key] = serve_long(engine, dur, style, lyric, path_long)
+
+    phase("batch")
+    served.update(serve_configs3(engine, path_long))
+    served["configs[3] merged vs solo"] = merged_vs_solo(engine)
+    del engine
+    free_engine()
 
     phase("checkpoint")
     src = pipeline.build_random_engine(device="cuda", quant="q4_k", seed=4,
@@ -1603,6 +2032,8 @@ def run() -> int:
                      "library_ms": tot["lib"]})
     for name in (names["q8_0"], unit, trio):
         timed(name, "60s q4_0")
+    for name in (names["q4_k"], unit, trio):
+        timed(name, "600s q4_k")
     # the q8_0 kernel on the shapes the LM requests launched (prefill, codes head,
     # layer-scan linears), weighted by their launches
     for key in ("default 2", "pallas"):

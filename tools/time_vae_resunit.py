@@ -8,8 +8,8 @@ Run it from the root of a checkout: it times that checkout's
 ``acestep_tpu_torch`` with the inputs, timers and bounds of the
 ``chip_smoke.py`` beside this tool.  For each duration it decodes random
 latents of that length (25 frames a second) through the full-width random VAE
-the way a served request does (``vae.fused_tiled_decode_int16``, the pipeline's
-window plan), records each shape the two kernels launched and the host-clock
+in one pass (``pipeline.decode_one_pass`` at the chunk and window batch of
+the memory plan), records each shape the two kernels launched and the host-clock
 decode time (``vae_compute_time_cost`` of a request: the mean of ``--decodes``
 decodes after a warm-up), then times every shape with CUDA events (warm L2):
 the kernel, its plain PyTorch version, the same convs as cuDNN f32 calls, and,
@@ -49,17 +49,18 @@ def decode_shapes(vae_params, cfg, frames: int, decodes: int):
     """(unit shapes, trio shapes, mean decode seconds) of one request's decode
     of ``frames`` latent frames."""
     import torch
-    from acestep_tpu_torch import pipeline
-    from acestep_tpu_torch.models import vae
+    from acestep_tpu_torch import memory_planner, pipeline
+    from acestep_tpu_torch.config import DiTConfig
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
     g = torch.Generator(device="cuda").manual_seed(frames)
     latents = torch.randn((1, frames, cfg.decoder_input_channels), generator=g, device="cuda")
+    # the decode chunk and window batch the engine's memory plan gives
+    plan = memory_planner.plan_request(DiTConfig(), cfg, memory_planner.tree_bytes(vae_params),
+                                       1, frames)
 
     def run():
-        vae.fused_tiled_decode_int16(vae_params, cfg, latents,
-                                     chunk_frames=pipeline.VAE_CHUNK_FRAMES,
-                                     max_window_batch=pipeline.VAE_WINDOW_BATCH)
+        pipeline.decode_one_pass(vae_params, cfg, latents, plan)
         torch.cuda.synchronize()
 
     run()
