@@ -11,10 +11,17 @@ output parsing (port of the JAX package's lm_pipeline.py).
   * ``parse_lm_output`` parses the CoT block (multi-line values, int bpm and
     duration).
 
+``constrained_cot=True`` runs phase 1 under the metadata FSM
+(constrained.py): by default its compiled DFA decodes on the device
+(serving.lm.generate_with_fsm_device); ``device_fsm=False``, or a DFA that
+exceeds its budget, takes the host-stepped FSM instead.  The LM-only flows
+(understanding, inspiration, rewrite) share the single-prompt generation.
+
 Tokenization is pluggable: any object with ``encode`` / ``decode`` and the
-special-token ids (``TokenizerLike``).  The FSM-constrained CoT is not ported
-yet (``constrained_cot=True`` raises).  The pipeline runs on the card unless
-it is given ``device="cpu"``.
+special-token ids (``TokenizerLike``); ``TokenizerJsonAdapter`` reads a
+checkpoint's tokenizer.json (it needs the ``tokenizers`` package) and
+``HFTokenizerAdapter`` wraps a HuggingFace tokenizer.  The pipeline runs on
+the card unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -22,15 +29,20 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from acestep_tpu_torch import constrained
 from acestep_tpu_torch.config import QwenConfig
 from acestep_tpu_torch.constants import (
     AUDIO_CODEBOOK_SIZE,
+    DEFAULT_LM_INSPIRED_INSTRUCTION,
     DEFAULT_LM_INSTRUCTION,
+    DEFAULT_LM_REWRITE_INSTRUCTION,
+    DEFAULT_LM_UNDERSTAND_INSTRUCTION,
     DEFAULT_NEGATIVE_PROMPT,
     LM_CODE_RATE,
 )
@@ -54,6 +66,58 @@ class TokenizerLike(Protocol):
     eos_token_id: int
     think_end_id: int            # token id of "</think>"
     audio_code_base_id: int      # id of <|audio_code_0|>; codes are contiguous
+
+
+@dataclasses.dataclass
+class TokenizerJsonAdapter:
+    """Wraps a raw tokenizer.json through the ``tokenizers`` package (imported
+    when the adapter is made; checkpoints ship tokenizer.json)."""
+
+    path: str
+    eos_token: str = "<|im_end|>"
+
+    def __post_init__(self):
+        from tokenizers import Tokenizer
+
+        self.tok = Tokenizer.from_file(self.path)
+        self.eos_token_id = self.tok.token_to_id(self.eos_token)
+        if self.eos_token_id is None:
+            self.eos_token_id = self.tok.token_to_id("<|endoftext|>") or 0
+        ids = self.tok.encode("</think>", add_special_tokens=False).ids
+        self.think_end_id = ids[-1] if len(ids) == 1 else -1
+        base = self.tok.token_to_id("<|audio_code_0|>")
+        self.audio_code_base_id = base if base is not None else -1
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=False).ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(list(ids), skip_special_tokens=False)
+
+
+@dataclasses.dataclass
+class HFTokenizerAdapter:
+    """Wraps a HuggingFace tokenizer (from the LM checkpoint)."""
+
+    tok: Any
+    eos_token_id: int = -1
+    think_end_id: int = -1
+    audio_code_base_id: int = -1
+
+    def __post_init__(self):
+        if self.eos_token_id < 0:
+            self.eos_token_id = self.tok.eos_token_id
+        if self.think_end_id < 0:
+            ids = self.tok.encode("</think>", add_special_tokens=False)
+            self.think_end_id = ids[-1] if len(ids) == 1 else -1
+        if self.audio_code_base_id < 0:
+            self.audio_code_base_id = self.tok.convert_tokens_to_ids("<|audio_code_0|>")
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(list(ids))
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +181,25 @@ def build_formatted_prompt_with_cot(caption: str, lyrics: str, cot_text: str,
     if not formatted.endswith("\n"):
         formatted += "\n"
     return formatted
+
+
+def build_understanding_prompt(audio_codes: str, is_negative_prompt: bool = False,
+                               negative_prompt: str = DEFAULT_NEGATIVE_PROMPT) -> str:
+    """Understanding prompt: audio codes -> metadata and lyrics."""
+    user_content = ((negative_prompt if negative_prompt and negative_prompt.strip() else "")
+                    if is_negative_prompt else audio_codes)
+    return apply_chat_template(
+        [{"role": "system", "content": f"# Instruction\n{DEFAULT_LM_UNDERSTAND_INSTRUCTION}\n\n"},
+         {"role": "user", "content": user_content}],
+        add_generation_prompt=True)
+
+
+def build_sample_prompt(query: str, instruction: str = DEFAULT_LM_INSPIRED_INSTRUCTION) -> str:
+    """Inspiration (and, with the rewrite instruction, rewrite) prompt."""
+    return apply_chat_template(
+        [{"role": "system", "content": f"# Instruction\n{instruction}\n\n"},
+         {"role": "user", "content": query}],
+        add_generation_prompt=True)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +289,10 @@ class LMResult:
     time_costs: Dict[str, float]
     # batch candidate code sequences; [0] == code_indices
     candidates: Optional[List[np.ndarray]] = None
+    # after a constrained CoT: the machine that ran it ("device_dfa" or
+    # "host_fsm") and its token ids
+    cot_route: Optional[str] = None
+    cot_ids: Optional[List[int]] = None
 
 
 # code-count buckets (10-600 s -> 50-3000 codes); the forced-EOS count is a
@@ -248,15 +335,18 @@ class LMPipeline:
     The JAX package's environment knobs are keyword arguments with the same
     defaults: ``lm_head_quant`` (ACESTEP_TPU_LM_HEAD_QUANT), ``lm_fuse``
     (_LM_FUSE), ``kv_dtype`` (_KV_DTYPE), ``decode_mega`` (_DECODE_MEGA),
-    ``decode_attn`` (_DECODE_ATTN), ``int8_act`` (_INT8_ACT) and
-    ``reduced_codes_head`` (_REDUCED_CODES_HEAD).  Quant scales are cast to f32 once whatever
-    ``lm_fuse`` says: the CUDA matmul kernels read f32 scales."""
+    ``decode_attn`` (_DECODE_ATTN), ``int8_act`` (_INT8_ACT),
+    ``reduced_codes_head`` (_REDUCED_CODES_HEAD), ``device_fsm``
+    (_DEVICE_FSM) and ``genres_file`` (_GENRES_FILE).  Quant scales are cast
+    to f32 once whatever ``lm_fuse`` says: the CUDA matmul kernels read f32
+    scales."""
 
     def __init__(self, params: Dict[str, Any], cfg: QwenConfig, tokenizer: TokenizerLike,
                  *, device=None, lm_head_quant: Optional[str] = "q8_0", lm_fuse: bool = True,
                  kv_dtype: str = "int8", decode_mega: str = "auto",
                  decode_attn: str = "auto", int8_act: bool = False,
-                 reduced_codes_head: bool = True):
+                 reduced_codes_head: bool = True, device_fsm: bool = True,
+                 genres_file: Optional[str] = None):
         self.device = resolve_device(device)
         params = tree_to(params, self.device)
         if isinstance(params.get("layers"), list):
@@ -272,6 +362,10 @@ class LMPipeline:
         lm_serving.check_knobs(decode_mega, decode_attn, int8_act)
         self.knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
                           reduced_codes_head=reduced_codes_head)
+        self.device_fsm = device_fsm
+        self.genres_file = genres_file
+        self._dfa_cache: Dict[tuple, Tuple[Any, float]] = {}
+        self._vocab_strs: Optional[List[str]] = None
 
     def _ids(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.int64, device=self.device)
@@ -365,12 +459,9 @@ class LMPipeline:
 
         ``batch_size`` > 1 draws that many candidate code sequences from the
         shared CoT (chunked by ``chunk_size``); the first fills the result, all
-        are in ``candidates``.  ``time_costs`` adds to the JAX package's two
-        phase keys the phase-2 prefill and decode split."""
-        if constrained_cot:
-            raise NotImplementedError(
-                "constrained_cot=True (the FSM/DFA-constrained CoT of constrained.py) is not "
-                "ported to acestep_tpu_torch yet: it is the next slice of the port")
+        are in ``candidates``.  ``constrained_cot`` runs phase 1 under the
+        metadata FSM, with the user's metadata forced.  ``time_costs`` adds to
+        the JAX package's two phase keys the phase-2 prefill and decode split."""
         time_costs: Dict[str, float] = {}
         g1 = _seeded_generator(seed, 1, self.device)
         g2 = _seeded_generator(seed, 2, self.device)
@@ -378,12 +469,17 @@ class LMPipeline:
         t_codes = temperature if codes_temperature is None else codes_temperature
 
         metadata: Dict[str, Any] = dict(user_metadata or {})
+        cot_route = cot_ids = None
         if thinking:
             t0 = time.perf_counter()
-            cot_text = self._run_cot_free(caption, lyrics, g1, temperature=t_meta, top_p=top_p,
-                                          top_k=top_k, cfg_scale=cfg_scale,
-                                          negative_prompt=negative_prompt,
-                                          max_cot_tokens=max_cot_tokens)
+            if constrained_cot:
+                cot_text, cot_route, cot_ids = self._run_cot_fsm(caption, lyrics, metadata, g1, temperature=t_meta,
+                                             max_cot_tokens=max_cot_tokens)
+            else:
+                cot_text = self._run_cot_free(caption, lyrics, g1, temperature=t_meta,
+                                              top_p=top_p, top_k=top_k, cfg_scale=cfg_scale,
+                                              negative_prompt=negative_prompt,
+                                              max_cot_tokens=max_cot_tokens)
             parsed, _ = parse_lm_output(cot_text)
             for k, v in parsed.items():          # user metadata wins over the CoT
                 metadata.setdefault(k, v)
@@ -440,7 +536,8 @@ class LMPipeline:
         time_costs["lm_phase2_decode_time_cost"] = t_end - t_prefill
         return LMResult(metadata=metadata, cot_text=cot_text,
                         audio_codes=indices_to_codes(code_ids), code_indices=code_ids,
-                        time_costs=time_costs, candidates=candidates)
+                        time_costs=time_costs, candidates=candidates, cot_route=cot_route,
+                        cot_ids=cot_ids)
 
     def _run_cot_free(self, caption, lyrics, gen, *, temperature, top_p, top_k, cfg_scale,
                       negative_prompt, max_cot_tokens) -> str:
@@ -466,3 +563,104 @@ class LMPipeline:
         if not cot_text.endswith("</think>"):
             cot_text += "\n</think>"
         return cot_text
+
+    def _run_cot_fsm(self, caption, lyrics, user_metadata, gen, *, temperature,
+                     max_cot_tokens) -> Tuple[str, str, List[int]]:
+        """FSM-constrained CoT: field order and value grammars enforced during
+        generation, user metadata injected as forced text.  The compiled DFA
+        on the device by default (its own prefill; nothing enters the prefix
+        cache), the host-stepped FSM with ``device_fsm=False`` or when the DFA
+        exceeds its budget.  Returns (CoT text, the machine that ran it, its
+        token ids)."""
+        ids = self.tok.encode(build_formatted_prompt(caption, lyrics, generation_phase="cot"))
+        vocab_strs = self.vocab_strs()
+        knobs = dict(kv_dtype=self.kv_dtype, decode_mega=self.knobs["decode_mega"],
+                     decode_attn=self.knobs["decode_attn"], int8_act=self.knobs["int8_act"])
+        dfa = self.compiled_dfa(user_metadata)[0] if self.device_fsm else None
+        if dfa is not None:
+            cot_ids, text = lm_serving.generate_with_fsm_device(
+                self.params, self.cfg, ids, dfa, vocab_strs, gen, temperature=temperature,
+                max_new_tokens=max_cot_tokens, **knobs)
+            route = "device_dfa"
+        else:
+            fsm = constrained.MetadataFSM(self._fsm_config(), user_metadata=user_metadata or {})
+            cot_ids, text = lm_serving.generate_with_fsm(
+                self.params, self.cfg, ids, fsm, vocab_strs, gen, temperature=temperature,
+                max_new_tokens=max_cot_tokens, **knobs)
+            route = "host_fsm"
+        return f"<think>\n{text.strip()}\n</think>", route, cot_ids
+
+    def _fsm_config(self) -> constrained.FSMConfig:
+        return constrained.FSMConfig(genres_vocab=constrained.load_genres_vocab(self.genres_file))
+
+    def compiled_dfa(self, user_metadata: Optional[Dict[str, Any]] = None):
+        """(``compile_dfa`` of this pipeline's vocab and genres under
+        ``user_metadata``, the seconds its compile took), cached by (vocab,
+        genres content, user metadata).  The DFA is None (with a warning) when
+        the machine exceeds its budget: the caller then takes the host FSM, as
+        the JAX package does."""
+        vocab_strs = self.vocab_strs()
+        fsm_cfg = self._fsm_config()
+        key = (id(vocab_strs), len(vocab_strs), hash(tuple(fsm_cfg.genres_vocab)),
+               tuple(sorted((k, str(v)) for k, v in (user_metadata or {}).items())))
+        if key in self._dfa_cache:
+            return self._dfa_cache[key]
+        t0 = time.perf_counter()
+        try:
+            dfa = constrained.compile_dfa(vocab_strs, fsm_cfg, user_metadata=user_metadata or {})
+        except constrained.DFACompileError as e:
+            warnings.warn(f"device FSM unavailable ({e}); using host FSM", stacklevel=2)
+            dfa = None
+        if len(self._dfa_cache) > 16:
+            self._dfa_cache.clear()
+        self._dfa_cache[key] = (dfa, time.perf_counter() - t0)
+        return self._dfa_cache[key]
+
+    def vocab_strs(self) -> List[str]:
+        """Token id -> string piece for the whole vocab (FSM masking): the
+        tokenizer's own ``vocab_strs()`` where it has one."""
+        if self._vocab_strs is None:
+            tok = self.tok
+            if hasattr(tok, "vocab_strs"):
+                self._vocab_strs = tok.vocab_strs()
+            else:
+                self._vocab_strs = [tok.decode([i]) for i in range(self.cfg.vocab_size)]
+        return self._vocab_strs
+
+    # -- LM-only flows -------------------------------------------------------
+
+    def _flow(self, prompt: str, *, temperature: float, top_p: float, max_tokens: int,
+              seed: int) -> Dict[str, Any]:
+        sp = SamplingParams(temperature=temperature, top_p=top_p, max_new_tokens=max_tokens,
+                            stop_tokens=(self.tok.eos_token_id,))
+        toks, _ = self._run(prompt, sp, _seeded_generator(seed, 0, self.device))
+        text = self.tok.decode(toks)
+        metadata, _ = parse_lm_output(text)
+        metadata["raw_output"] = text
+        return metadata
+
+    @torch.no_grad()
+    def understand_audio_from_codes(self, audio_codes: str, *, temperature: float = 0.7,
+                                    top_p: float = 0.95, max_tokens: int = 1024,
+                                    seed: int = 0) -> Dict[str, Any]:
+        """Understanding flow: audio codes -> metadata and lyrics."""
+        return self._flow(build_understanding_prompt(audio_codes), temperature=temperature,
+                          top_p=top_p, max_tokens=max_tokens, seed=seed)
+
+    @torch.no_grad()
+    def create_sample_from_query(self, query: str, *, temperature: float = 0.85,
+                                 top_p: float = 0.95, max_tokens: int = 768,
+                                 seed: int = 0) -> Dict[str, Any]:
+        """Inspiration flow: a free-text query -> a structured sample."""
+        return self._flow(build_sample_prompt(query, DEFAULT_LM_INSPIRED_INSTRUCTION),
+                          temperature=temperature, top_p=top_p, max_tokens=max_tokens,
+                          seed=seed)
+
+    @torch.no_grad()
+    def format_sample_from_input(self, text: str, *, temperature: float = 0.3,
+                                 top_p: float = 0.9, max_tokens: int = 768,
+                                 seed: int = 0) -> Dict[str, Any]:
+        """Rewrite flow: messy input -> a formatted sample."""
+        return self._flow(build_sample_prompt(text, DEFAULT_LM_REWRITE_INSTRUCTION),
+                          temperature=temperature, top_p=top_p, max_tokens=max_tokens,
+                          seed=seed)

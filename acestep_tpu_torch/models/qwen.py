@@ -52,9 +52,15 @@ def stack_params(params: Params) -> Params:
 def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask):
     b, l, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
-    q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
-    k = linear(x, p["k_proj"]["kernel"]).reshape(b, l, nkv, hd)
-    v = linear(x, p["v_proj"]["kernel"]).reshape(b, l, nkv, hd)
+    if "qkv_proj" in p:              # serving-fused q||k||v (the LM's params)
+        qkv = linear(x, p["qkv_proj"]["kernel"])
+        q = qkv[..., : nh * hd].reshape(b, l, nh, hd)
+        k = qkv[..., nh * hd: (nh + nkv) * hd].reshape(b, l, nkv, hd)
+        v = qkv[..., (nh + nkv) * hd:].reshape(b, l, nkv, hd)
+    else:
+        q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
+        k = linear(x, p["k_proj"]["kernel"]).reshape(b, l, nkv, hd)
+        v = linear(x, p["v_proj"]["kernel"]).reshape(b, l, nkv, hd)
     q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
     k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
     v = v.transpose(1, 2)

@@ -183,6 +183,7 @@ class GenerationRequest:
     timesteps: Optional[Sequence[float]] = None
     batch_size: int = 1
     durations_s: Optional[Sequence[float]] = None
+    infer_method: str = "ode"                         # "ode" or "sde"
 
 
 class GenerationResult:
@@ -308,11 +309,13 @@ class AceStepEngine:
         return torch.cat(parts, dim=0)
 
     @torch.no_grad()
-    def generate(self, req: GenerationRequest,
-                 noise: Optional[torch.Tensor] = None) -> GenerationResult:
+    def generate(self, req: GenerationRequest, noise: Optional[torch.Tensor] = None,
+                 sde_noise: Optional[torch.Tensor] = None) -> GenerationResult:
         """text2music for one request (pipeline.py:528-863).  ``noise [B,
         T_bucket, 64]`` overrides the seeded draw (tests pass the JAX
-        package's noise)."""
+        package's noise); so does ``sde_noise [n_steps, B, T_bucket, 64]`` for
+        the SDE sampler's per-step draws, which otherwise come from a
+        generator seeded with the first seed."""
         t0 = time.perf_counter()
         time_costs: Dict[str, float] = {}
         b = req.batch_size
@@ -346,9 +349,14 @@ class AceStepEngine:
         schedule = sampler.get_timestep_schedule(req.shift, req.timesteps)
 
         t1 = time.perf_counter()
+        sde_gen = None
+        if req.infer_method == "sde" and sde_noise is None:
+            sde_gen = torch.Generator(device=self.device).manual_seed(int(seeds[0]))
         latents = sampler.sample_latents(self.dit_params, self.dit_cfg, noise, ctx, enc,
                                          enc_mask, schedule, attn_mask=attn_mask,
-                                         dit_mega=self.dit_mega, int8_act=self.int8_act)
+                                         dit_mega=self.dit_mega, int8_act=self.int8_act,
+                                         infer_method=req.infer_method, sde_noise=sde_noise,
+                                         sde_generator=sde_gen)
         self._sync()
         time_costs["diffusion_time_cost"] = time.perf_counter() - t1
         time_costs["diffusion_per_step_time_cost"] = (

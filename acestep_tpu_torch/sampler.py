@@ -1,8 +1,9 @@
-"""Flow-matching Euler sampler (turbo: 8 steps, CFG-free), ODE form.
+"""Flow-matching Euler sampler (turbo: 8 steps, CFG-free), ODE and SDE forms.
 
-Port of the JAX package's sampler.py schedules and ``sample_latents`` for
-``infer_method="ode"``.  Noise comes in as an argument: torch cannot reproduce
-``jax.random`` draws, so parity tests hand both packages the same numpy noise.
+Port of the JAX package's sampler.py schedules and ``sample_latents``.  Noise
+comes in as an argument: torch cannot reproduce ``jax.random`` draws, so parity
+tests hand both packages the same numpy noise, and the SDE form's per-step
+draws likewise (``sde_noise``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ SHIFT_TIMESTEPS = {
 }
 
 MAX_CUSTOM_TIMESTEPS = 20
+INFER_METHODS = ("ode", "sde")
 
 
 def get_timestep_schedule(shift: float = 3.0,
@@ -61,12 +63,22 @@ def sample_latents(
     attn_mask: Optional[torch.Tensor] = None,
     dit_mega: bool = False,
     int8_act: bool = False,
+    infer_method: str = "ode",
+    sde_noise: Optional[torch.Tensor] = None,
+    sde_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Run the ODE Euler loop; returns clean latents x0 [B, T, 64] (f32).
+    """Run the Euler loop; returns clean latents x0 [B, T, 64] (f32).
 
     The condition is projected and its per-layer cross-attention K/V computed
     once (and stacked once for the megakernel), then the DiT runs once per
-    schedule step.  ``dit_mega`` / ``int8_act``: ``dit.forward``'s switches."""
+    schedule step.  ``dit_mega`` / ``int8_act``: ``dit.forward``'s switches.
+
+    ``infer_method="sde"`` re-noises the x0 prediction every step but the last:
+    ``x = t_next * eps + (1 - t_next) * x0``.  The draws ``eps`` are
+    ``sde_noise[i]`` ([n_steps, B, T, 64]; the last one is not used) where
+    given, else standard normal draws from ``sde_generator``."""
+    if infer_method not in INFER_METHODS:
+        raise ValueError(f"infer_method={infer_method!r}: expected one of {INFER_METHODS}")
     b = noise.shape[0]
     dtype = torch.bfloat16
     dev = noise.device
@@ -85,6 +97,10 @@ def sample_latents(
                          cross_kv_stacked=kv_stacked).float()
         if i == n_steps - 1:
             xt = xt - vt * t
+        elif infer_method == "sde":
+            eps = (sde_noise[i].to(dev, torch.float32) if sde_noise is not None
+                   else torch.randn(xt.shape, generator=sde_generator, device=dev))
+            xt = t_next * eps + (1.0 - t_next) * (xt - vt * t)
         else:
             xt = xt - vt * (t - t_next)
     return xt

@@ -11,8 +11,8 @@ validity.  Queued priority rises one level per ``AGING_S`` so nothing starves.
 One worker thread runs the merged batches one at a time.
 
 The port's ``GenerationRequest`` has only text2music's fields, so the merge
-key keeps task, shift and timesteps, and nothing of timbre or source audio is
-merged.
+key keeps task, shift, timesteps and the sampler (ODE or SDE), and nothing of
+timbre or source audio is merged.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def _merge_key(req: GenerationRequest) -> Tuple:
     """Fields that must be equal for a merge: everything merge_requests takes
     from the first request that changes the computed function.  Frame and
     token buckets are not in it: shorter requests pad up."""
-    return (req.task, req.shift, tuple(req.timesteps) if req.timesteps else None)
+    return (req.task, req.shift, tuple(req.timesteps) if req.timesteps else None,
+            req.infer_method)
 
 
 def _req_frames(req: GenerationRequest) -> int:

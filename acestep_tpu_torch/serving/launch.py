@@ -1,11 +1,13 @@
-"""Engine construction for serving: from a converted checkpoint directory, or
-random weights without one.
+"""Engine and LM construction for serving: from a converted checkpoint
+directory, or random weights without one.
 
 A checkpoint directory holds ``dit``, ``vae`` and ``text_encoder`` parameter
 files as ``loader.save_params`` writes them (``<name>.safetensors`` plus
 ``<name>.json``), each beside an optional ``<name>.config.json`` (the model's
 config; the flagship defaults where it is missing).  Quantized weights are
-served in the format they were saved in.
+served in the format they were saved in.  An LM planner adds ``lm`` parameter
+files, ``lm.config.json`` and the tokenizer's ``tokenizer.json`` (read with the
+``tokenizers`` package).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 from acestep_tpu_torch import loader
 from acestep_tpu_torch.config import DiTConfig, QwenConfig, VAEConfig
+from acestep_tpu_torch.lm_pipeline import LMPipeline, TokenizerJsonAdapter
 from acestep_tpu_torch.pipeline import AceStepEngine, build_random_engine, resolve_device
 
 
@@ -47,3 +50,21 @@ def build_engine(checkpoint: Optional[str] = None, quant: str = "q8_0",
                          params("text_encoder"),
                          _load_cfg(checkpoint, "text_encoder", QwenConfig), device=dev,
                          dit_mega=dit_mega, int8_act=int8_act)
+
+
+def build_lm(checkpoint: Optional[str], device=None, **knobs) -> Optional[LMPipeline]:
+    """The LM planner of ``checkpoint`` on ``device`` (the card by default):
+    ``lm`` parameters, ``lm.config.json`` and ``tokenizer.json``.  None when the
+    checkpoint has no LM: the server then runs the engine alone.  ``knobs`` go
+    to :class:`LMPipeline`."""
+    if not checkpoint:
+        return None
+    lm_dir = os.path.join(checkpoint, "lm")
+    tok_path = os.path.join(checkpoint, "tokenizer.json")
+    if not os.path.exists(lm_dir + ".safetensors") or not os.path.exists(tok_path):
+        return None
+    with open(os.path.join(checkpoint, "lm.config.json")) as f:
+        cfg = QwenConfig.from_dict(json.load(f))
+    dev = resolve_device(device)
+    return LMPipeline(loader.load_params(lm_dir, device=dev), cfg,
+                      TokenizerJsonAdapter(tok_path), device=dev, **knobs)

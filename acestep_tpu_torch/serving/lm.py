@@ -43,6 +43,7 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from acestep_tpu_torch.config import QwenConfig
@@ -666,6 +667,157 @@ def decode_from_state(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache, l
                         None if ucache is None else ucache.clone(), ulogits, min_tokens_arr,
                         forced_eos_arr, reduced_codes_head=reduced_codes_head,
                         decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+
+
+# ---------------------------------------------------------------------------
+# constrained CoT: the metadata FSM on the host, or its compiled DFA on the
+# device
+# ---------------------------------------------------------------------------
+
+def _fsm_prefill(params, cfg: QwenConfig, prompt_ids: Sequence[int], max_new_tokens: int,
+                 kv_dtype: str, int8_act: bool):
+    """The unbucketed batch-1 prompt prefilled, on the params' device, into a
+    fresh cache with room for ``max_new_tokens`` more positions."""
+    device = params["embed_tokens"].device
+    ids = torch.tensor([list(prompt_ids)], dtype=torch.int64, device=device)
+    lengths = torch.tensor([len(prompt_ids)], dtype=torch.int32, device=device)
+    cache = kvc.init_cache(cfg.num_hidden_layers, 1, cfg.num_key_value_heads,
+                           kvc.round_len(len(prompt_ids) + max_new_tokens + 1), cfg.head_dim,
+                           kv_dtype, device)
+    return prefill(params, cfg, ids, lengths, cache, int8_act=int8_act)
+
+
+@torch.no_grad()
+def generate_with_fsm(params: Dict[str, Any], cfg: QwenConfig, prompt_ids: Sequence[int], fsm,
+                      vocab_strs: Sequence[str], gen: Optional[torch.Generator],
+                      temperature: float = 0.7, max_new_tokens: int = 256, *,
+                      kv_dtype: str = "int8", decode_mega: str = "auto",
+                      decode_attn: str = "auto", int8_act: bool = False) -> Tuple[list, str]:
+    """Generate one sequence under the host-stepped ``constrained.MetadataFSM``,
+    on the params' device: the prompt's prefill, then one decode step a token,
+    each token drawn from the logits masked by ``fsm.allowed`` (greedy at
+    temperature 0, else Gumbel-max from ``gen``).  Stops when the FSM is done
+    or its mask is empty.  Returns (token ids, text)."""
+    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+    logits, cache = _fsm_prefill(params, cfg, prompt_ids, max_new_tokens, kv_dtype, int8_act)
+    device = logits.device
+    vocab = len(vocab_strs)
+    ones = torch.ones((1,), dtype=torch.bool, device=device)
+    out_ids: List[int] = []
+    out_text: List[str] = []
+    for _ in range(max_new_tokens):
+        if fsm.done:
+            break
+        mask = fsm.allowed(vocab_strs)
+        if not mask.any():
+            break
+        lg = torch.where(torch.from_numpy(mask).to(device), logits[0, :vocab], NEG_INF)
+        tok = int(sample_logits(gen, lg[None], temperature)[0])
+        piece = vocab_strs[tok]
+        out_ids.append(tok)
+        out_text.append(piece)
+        fsm.step(piece)
+        logits, cache = decode_step(params, cfg, cache,
+                                    torch.tensor([tok], dtype=torch.int64, device=device),
+                                    **knobs)
+        cache = kvc.advance(cache, ones)
+    return out_ids, "".join(out_text)
+
+
+DFA_TABLES = ("masks_packed", "default_next", "exc_tok", "exc_next", "exc_cap", "is_caption",
+              "cap_len", "has_nl")
+_DFA_INDEX_TABLES = ("default_next", "exc_tok", "exc_next")        # held as int64
+
+
+def dfa_tables(dfa, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The compiled DFA's tables on ``device``, uploaded once per (DFA, device)
+    and cached on the DFA object.  The packed uint32 mask words are held as
+    int32 (the same bits): the unpack shifts them as int32."""
+    if getattr(dfa, "_device_arrays", None) is None:
+        dfa._device_arrays = {}
+    key = str(device)
+    if key not in dfa._device_arrays:
+        tabs = {}
+        for name in DFA_TABLES:
+            a = getattr(dfa, name)
+            t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+            tabs[name] = t.long() if name in _DFA_INDEX_TABLES else t
+        dfa._device_arrays[key] = tabs
+    return dfa._device_arrays[key]
+
+
+@torch.no_grad()
+def _dfa_decode(params, cfg: QwenConfig, prompt_ids: Sequence[int], dfa, gen,
+                temperature: float, max_new_tokens: int, *, kv_dtype: str = "int8",
+                check_every: int = 16, decode_mega: str = "auto", decode_attn: str = "auto",
+                int8_act: bool = False) -> torch.Tensor:
+    """Constrained decode of one sequence under the compiled DFA, its state on
+    the device (the JAX package's ``_dfa_decode`` while_loop).  Each step
+    gathers the state's packed mask row, unpacks it against the vocabulary,
+    applies the caption char budget, samples, and moves to ``exc_next`` where
+    the token is one of the state's exceptions, else to ``default_next``.  The
+    loop stops on the done state or on an empty mask (no token emitted).
+
+    The host reads the done flag once every ``check_every`` steps and nowhere
+    else; steps run after the stop leave the state frozen and emit nothing, so
+    the tokens are the same whatever ``check_every`` is.  Returns the emitted
+    token ids [n] on the device."""
+    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+    logits, cache = _fsm_prefill(params, cfg, prompt_ids, max_new_tokens, kv_dtype, int8_act)
+    device = logits.device
+    tabs = dfa_tables(dfa, device)
+    v = dfa.vocab_size
+    vocab_model = logits.shape[-1]
+    vids = torch.arange(v, device=device)
+    widx, wshift = vids // 32, (vids % 32).to(torch.int32)
+    cap_len, has_nl = tabs["cap_len"], tabs["has_nl"]
+    max_cap, done_state = dfa.max_caption_chars, dfa.done_state
+    state = torch.tensor(dfa.start_state, dtype=torch.int64, device=device)
+    used = torch.zeros((), dtype=torch.int32, device=device)
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    ones = torch.ones((1,), dtype=torch.bool, device=device)
+    neg = torch.full((vocab_model,), NEG_INF, dtype=logits.dtype, device=device)
+    toks: List[torch.Tensor] = []
+    for step in range(max_new_tokens):
+        row = tabs["masks_packed"][state]                                  # [W] int32
+        allowed = ((row[widx] >> wshift) & 1).bool()
+        cap_ok = (used + cap_len <= max_cap) & (~has_nl | (used + cap_len > 0))
+        allowed = allowed & (cap_ok | ~tabs["is_caption"][state])
+        stuck = ~allowed.any()
+        lg = torch.cat([torch.where(allowed, logits[0, :v], NEG_INF), neg[v:]])
+        tok = sample_logits(gen, lg[None], temperature)[0].long()
+        hits = tabs["exc_tok"][state] == tok
+        hit = hits.any()
+        j = torch.argmax(hits.to(torch.int32))
+        nxt = torch.where(hit, tabs["exc_next"][state][j], tabs["default_next"][state])
+        # a token drawn from an empty mask may lie past the table (not emitted)
+        delta = torch.where(hit, tabs["exc_cap"][state][j],
+                            torch.where(tabs["is_caption"][state],
+                                        cap_len[tok.clamp(max=v - 1)], 0))
+        live = ~done
+        toks.append(torch.where(live & ~stuck, tok, -1))
+        state = torch.where(live, nxt, state)
+        used = torch.where(live, used + delta, used)
+        done = done | (nxt == done_state) | stuck
+        logits, cache = decode_step(params, cfg, cache, tok[None], **knobs)
+        cache = kvc.advance(cache, ones)
+        if (step + 1) % check_every == 0 and bool(done):
+            break
+    out = torch.stack(toks)
+    return out[out >= 0]
+
+
+def generate_with_fsm_device(params: Dict[str, Any], cfg: QwenConfig,
+                             prompt_ids: Sequence[int], dfa, vocab_strs: Sequence[str],
+                             gen: Optional[torch.Generator], temperature: float = 0.7,
+                             max_new_tokens: int = 256, **kw) -> Tuple[list, str]:
+    """The device counterpart of :func:`generate_with_fsm` under a
+    ``constrained.CompiledDFA``: the whole constrained block with its state on
+    the params' device.  ``kw``: ``_dfa_decode``'s keywords.  Returns (token
+    ids, text)."""
+    toks = _dfa_decode(params, cfg, prompt_ids, dfa, gen, temperature, max_new_tokens, **kw)
+    out_ids = [int(t) for t in toks.cpu().tolist()]
+    return out_ids, "".join(vocab_strs[t] for t in out_ids)
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,10 @@ Phases, each announced by a timestamped line:
   7. output     audio_lengths == [480000], int16 [1, >=480000, 2], non-constant,
                 finite positive scale; a small engine on the card (kernels)
                 against the same engine on the CPU (plain versions): the Q8_0
-                gate, cosine >= 0.999 and SNR >= 26 dB; the same for a small
-                engine that meets the megakernel's gate, with both switches on
+                gate, cosine >= 0.999 and SNR >= 26 dB, with the ODE sampler
+                and with the SDE one (the same per-step draws given to both
+                sides); the same for a small engine that meets the
+                megakernel's gate, with both switches on
   8. engine60   the full-width random q4_0 engine (the q8_0 engine freed first)
   9. serve60    configs[1]: the same request at 60 s, three times at q4_0
                 (q4_0_qmm, q8_0_qmm, vae_res_unit and vae_res_trio launched in
@@ -119,14 +121,38 @@ Phases, each announced by a timestamped line:
                 int8_act on, once on the default path (the head through row 6)
                 and once with decode_mega=0 (every layer linear too);
                 time_costs and launches of every request
- 19. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 15
+ 19. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 15,
+                and every (B, T) of row 11 not checked in phase 16, through
+                the LM's own 28 layers at phase 16's 28-layer bounds
  20. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
                 same LM on the CPU (plain versions), both fed the CPU's tokens:
                 logits of the first two steps within 2e-2 of the peak (4e-2
                 with int8 activations), the top token equal at every step whose
                 CPU top-1/top-2 gap is at least 2e-2 of the peak; on the
                 megakernel, and with int8_act on the layer scan
- 21. timing     kernel, plain-version and library-call times at the served
+ 21. check_fsm  the constrained CoT on the small LM of phase 20 over a
+                4096-piece demo vocabulary (caption budget 24), user metadata
+                {} and {bpm 100, duration 120}: greedy device-DFA tokens
+                (serving.lm.generate_with_fsm_device) equal the greedy
+                host-FSM tokens on the card, replay valid and done through
+                MetadataFSM; the DFA without its caption budget and without
+                its exception table (planted faults) each rejected
+ 22. full       configs[2] whole: a full-width q4_k engine and the 0.6B q8_0 LM
+                (int8 KV) through inference.generate_music with
+                tools/bench_full_pipeline.py's request (120 s, bpm 100, 64
+                style tokens of default_rng(0), 256 lyric tokens of
+                default_rng(1)), three times (one warm-up, two timed, int16
+                equal): 600 codes in [0, 64000), 120 s of int16 audio, the q8_0
+                (rows 1-2), q4_k (row 4), res unit / trio (rows 7, 8) and
+                decode megakernel (row 11) kernels launched in each; then the
+                +think row: thinking with the constrained CoT over the full
+                151,669-piece demo vocabulary, three times and once with
+                lm_num_candidates=4 (PMI ranking): the device DFA taken, the
+                CoT ids replay valid and done, bpm, keyscale, timesignature,
+                language, caption and genres parsed, duration 120 forced
+ 23. recheck_full the kernel shapes those requests launched, as phase 19
+                (row 11 at the +think CoT's and the candidates' cache lengths)
+ 24. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
@@ -172,6 +198,7 @@ LM_LYRICS = "[verse]\nacross the silver sea\n[chorus]\nrise again\n"
 LM_DURATION_S = 120.0
 LM_CODES = 600                 # 120 s at 5 codes/s (code bucket 768)
 LM_T = 1408                    # cache length of that request (round_len(512 + 768 + 1))
+FSM_CAPTION = 24               # check_fsm's caption budget: it binds, so a dropped budget shows
 ATTN_TOL = 2e-2                # test_decode_attn_pallas.py:52
 MEGA_REL = 2e-2                # test_decode_mega.py:64-70: logits / rows
 # int8 activations amplify the surrounding ops' rounding differences: one bf16
@@ -1159,6 +1186,79 @@ class ByteTokenizer:
         return "".join(out)
 
 
+def build_demo_vocab(size: int) -> list:
+    """The demo tokenizer piece list of tools/bench_full_pipeline.py:19-50 (the
+    port's copy, over the port's constrained constants): newline variants, the
+    metadata field keys at several granularities, the numerals 0-999,
+    keyscale / language / genre fragments, a caption word pool, then distinct
+    filler pieces up to ``size``."""
+    from acestep_tpu_torch.constrained import DEFAULT_GENRES, FIELD_ORDER, KEYS, LANGUAGES
+
+    pieces = ["<eos>", "</think>", "\n", "\n\n", ": ", ":", " ", "<think>"]
+    for f in FIELD_ORDER:
+        pieces += [f, f + ":", f + ": ", "\n" + f, "\n" + f + ": ", f[:3], f[3:]]
+    pieces += [str(n) for n in range(1000)]
+    pieces += KEYS + [" major", " minor", "major", "minor", "m", "aj", "in", "or", "ajor",
+                      "inor"]
+    pieces += LANGUAGES
+    for g in DEFAULT_GENRES:
+        pieces += [g, g[:2], g[2:], " " + g]
+    words = ["warm", "dream", "night", "synth", "drive", "slow", "deep", "neon", "rain", "city",
+             "soft", "analog", "tape", "dust", "golden", "haze", "pulse", "wave", "drift", "glow"]
+    pieces += words + [" " + w for w in words] + [",", ".", "!", "?", "'s"]
+    for a in "abcdefghijklmnopqrstuvwxyz":
+        pieces += [a, a.upper(), " " + a]
+    seen, out = set(), []
+    for p in pieces:
+        if p not in seen:
+            seen.add(p)
+            out.append(p)
+    i = 0
+    while len(out) < size:
+        out.append(f"\u00a7w{i}")          # distinct filler pieces
+        i += 1
+    return out[:size]
+
+
+class DemoVocabTokenizer(ByteTokenizer):
+    """ByteTokenizer over a demo vocabulary (``vocab_strs`` for the FSM; ids
+    below the code range decode to their pieces), as the bench's --thinking
+    row builds it, with ByteTokenizer's code range."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def vocab_strs(self):
+        return self.vocab
+
+    def decode(self, ids):
+        out = []
+        for i in ids:
+            i = int(i)
+            if i == self.think_end_id:
+                out.append("</think>")
+            elif i >= self.audio_code_base_id:
+                out.append(f"<|audio_code_{i - self.audio_code_base_id}|>")
+            elif 0 <= i < len(self.vocab):
+                out.append(self.vocab[i])
+        return "".join(out)
+
+
+def replay_ok(ids, vocab, user_metadata, fsm_cfg) -> bool:
+    """Do ``ids`` replay valid through the host MetadataFSM and end it?  Each
+    token is checked with ``allowed_piece`` on its non-empty piece, which is
+    ``MetadataFSM.allowed(vocab)[t]`` without the O(V) scan of a value state."""
+    from acestep_tpu_torch import constrained
+
+    fsm = constrained.MetadataFSM(fsm_cfg, user_metadata=user_metadata)
+    for t in ids:
+        piece = vocab[t]
+        if fsm.done or not piece or not fsm.allowed_piece(piece):
+            return False
+        fsm.step(piece)
+    return fsm.done
+
+
 def random_cache(g, b, t_max, n_layers=28, hkv=8):
     import torch
     from acestep_tpu_torch.serving import kv_cache as kvc
@@ -1348,13 +1448,14 @@ def mega_plain_faulty(layers, cfg, fault, cache_k, cache_ks, cache_v, cache_vs, 
     return (x, *(torch.stack([o[i] for o in outs]) for i in range(4)))
 
 
-def check_mega(check_layers, cfg) -> float:
+def check_mega(check_layers, cfg):
     """Row 11 against its plain version at the 0.6B shapes through the first 2
     and all 28 layers, at the bounds ``mega_bounds`` derives from this run's
     drift of the plain version (card against CPU) at that depth; argmax equal
     in every row at 2 layers, at 28 where the plain row's top-1 / top-2 gap is
     at least the x bound; reruns bit-identical.  Then the planted faults: each
-    must fail the check at one of the two depths.  Returns the x max abs error."""
+    must fail the check at one of the two depths.  Returns (the x max abs
+    error, the bounds at all the layers, the (B, T) shapes checked)."""
     import torch
     from acestep_tpu_torch import weights
     from acestep_tpu_torch.models.stacking import first_layers
@@ -1430,7 +1531,30 @@ def check_mega(check_layers, cfg) -> float:
         if not any(seen):
             passed.append(fault)
     require(not passed, f"planted faults {passed} pass both megakernel checks")
-    return err
+    return err, bounds[cfg.num_hidden_layers], {(b, LM_T) for b, _ in cases}
+
+
+def check_mega_shape(layers, cfg, bounds, shape, seed) -> float:
+    """Row 11 against its plain version at one (B, T) that a request launched,
+    through all the layers of ``layers``, held to ``bounds`` (check_mega's at
+    that depth; argmax equal where the plain row's top-1 / top-2 gap is at
+    least the x bound); lengths spread over [1, T - 1].  Returns the x max abs
+    error."""
+    from acestep_tpu_torch.ops.cuda import decode_mega
+
+    b, t_max = shape
+    lengths = [max(1, (t_max - 1) * (i + 1) // b) for i in range(b)]
+    label = f"{decode_mega.MEGA.name} {cfg.num_hidden_layers} layers B={b} T={t_max} " \
+            f"lengths={lengths}"
+    require(decode_mega.supported(layers, cfg, b, t_max), f"megakernel gate refuses {label}")
+    args = mega_case(layers, b, lengths, seed, t_max=t_max, n_layers=cfg.num_hidden_layers)
+    got = decode_mega.decode_layers_mega(layers, cfg, *args)
+    ref = decode_mega.decode_layers_mega_plain(layers, cfg, *args)
+    d = mega_diff(got, ref, bounds[0])
+    ok = mega_passes(d, bounds)
+    log(f"  {label}: {mega_line(d)} {'ok' if ok else 'FAIL'}")
+    require(ok, f"{label}: megakernel disagrees with its plain version")
+    return max_err(got[0], ref[0])
 
 
 def lm_weight_bytes(cfg):
@@ -1536,6 +1660,29 @@ def run() -> int:
     def qcheck(fmt, shape, seed):
         errs[names[fmt]] = max(errs[names[fmt]], check_qmm(fmt, shape, seed))
         checked[names[fmt]].add(shape)
+
+    def recheck_shapes(shapes, seed, lm=None):
+        """Every (kernel, shape) in ``shapes`` (by kernel name) not checked yet,
+        against its plain version as phase check holds it: the dequant
+        matmuls, the res unit and trio, and row 11 where ``lm`` (its layers,
+        config and check_mega's bounds at that depth) is given."""
+        for fmt, name in names.items():
+            for shape in shapes[name]:
+                if shape not in checked[name]:
+                    qcheck(fmt, shape, seed)
+        for name, check in ((unit, check_unit), (trio, check_trio)):
+            for shape in shapes[name]:
+                if shape not in checked[name]:
+                    errs[name] = max(errs[name], check(shape, seed))
+                    checked[name].add(shape)
+        if lm is not None:
+            for shape in shapes[mega_name]:
+                if shape not in checked[mega_name]:
+                    errs[mega_name] = max(errs[mega_name], check_mega_shape(*lm, shape, seed))
+                    checked[mega_name].add(shape)
+            log(f"  {mega_name} launches by (B, T): " + json.dumps(
+                {str(k): v for k, v in sorted(shapes[mega_name].items())})
+                + " (each (B, T) held to the plain version)")
 
     # ragged M, N and K (K % 128: 96, 32, 64; K = 384: the 60 s proj_in)
     for i, shape in enumerate(main_path_shapes(dit_cfg, text_cfg) +
@@ -1646,8 +1793,13 @@ def run() -> int:
         lyric_token_ids=small_rng.integers(0, 512, (1, 40)), seeds=[2])
     noise = torch.randn((1, 256, 8), generator=torch.Generator().manual_seed(5))
 
-    def card_vs_cpu(quant, need, cfg=small_dit, request=small_req, knobs=None):
+    def card_vs_cpu(quant, need, cfg=small_dit, request=small_req, knobs=None, sde=False):
         knobs = knobs or {}
+        draws = {}
+        if sde:       # the same per-step SDE draws on both sides
+            request = dataclasses.replace(request, infer_method="sde")
+            draws["sde_noise"] = torch.randn((8, 1, 256, 8),
+                                             generator=torch.Generator().manual_seed(6))
         cpu_eng = pipeline.build_random_engine(device="cpu", quant=quant, seed=3,
                                                dit_cfg=cfg, vae_cfg=small_vae,
                                                text_cfg=small_text, **knobs)
@@ -1656,18 +1808,19 @@ def run() -> int:
             weights.tree_to(cpu_eng.vae_params, "cuda"), small_vae,
             weights.tree_to(cpu_eng.text_params, "cuda"), small_text, device="cuda", **knobs)
         before = snapshot_counts()[0]
-        ref = cpu_eng.generate(request, noise=noise).audio.ravel().astype(np.float64)
-        got = gpu_eng.generate(request, noise=noise).audio.ravel().astype(np.float64)
+        ref = cpu_eng.generate(request, noise=noise, **draws).audio.ravel().astype(np.float64)
+        got = gpu_eng.generate(request, noise=noise, **draws).audio.ravel().astype(np.float64)
         after = snapshot_counts()[0]
         require(all(after[n] > before[n] for n in need),
                 f"small {quant} engine {knobs} on the card missed a kernel of {need}")
         cos, snr = gate(ref, got)
-        log(f"small {quant} engine {knobs}, card (kernels) vs CPU (plain): cosine {cos:.6f} "
+        what = f"{quant} engine {knobs}" + (" SDE" if sde else "")
+        log(f"small {what}, card (kernels) vs CPU (plain): cosine {cos:.6f} "
             f"(>= 0.999), SNR {snr:.2f} dB (>= 26)")
-        require(cos >= 0.999 and snr >= 26.0, f"card and CPU disagree on the small "
-                f"{quant} engine {knobs}")
+        require(cos >= 0.999 and snr >= 26.0, f"card and CPU disagree on the small {what}")
 
     card_vs_cpu("q8_0", path10)
+    card_vs_cpu("q8_0", path10, sde=True)
     # a small engine that meets the megakernel's gate (head dim 128), at 10.24 s
     mega_dit = dataclasses.replace(small_dit, num_attention_heads=4, num_key_value_heads=2,
                                    head_dim=128, sliding_window=4)
@@ -1763,18 +1916,7 @@ def run() -> int:
 
     phase("recheck")
     for key, (_, shapes) in served.items():
-        for fmt, name in names.items():
-            for shape in shapes[name]:
-                if shape not in checked[name]:
-                    qcheck(fmt, shape, 99)
-        for shape in shapes[unit]:
-            if shape not in checked[unit]:
-                errs[unit] = max(errs[unit], check_unit(shape, 99))
-                checked[unit].add(shape)
-        for shape in shapes[trio]:
-            if shape not in checked[trio]:
-                errs[trio] = max(errs[trio], check_trio(shape, 99))
-                checked[trio].add(shape)
+        recheck_shapes(shapes, 99)
 
     # ---- the LM planner: configs[2]'s codes phase ----
     from acestep_tpu_torch import lm_pipeline
@@ -1812,7 +1954,7 @@ def run() -> int:
     check_layers = lm_serving.fuse_serving_params(
         qwen.init_params(QWEN3_0_6B, device="cuda", seed=11, quant="q8_0"))["layers"]
     log(f"28-layer q8_0 weights for the megakernel check drawn in {time.perf_counter() - t:.1f} s")
-    errs[mega_name] = check_mega(check_layers, QWEN3_0_6B)
+    errs[mega_name], mega_bounds28, checked[mega_name] = check_mega(check_layers, QWEN3_0_6B)
     del check_layers
     free_engine()
 
@@ -1864,10 +2006,9 @@ def run() -> int:
     require(lm_runs["B layer scan"][1][mega_name] == 0, f"decode_mega=0 still ran {mega_name}")
 
     phase("recheck_lm")
+    lm_check = (pipe.params["layers"], QWEN3_0_6B, mega_bounds28)
     for key, (_, _, shapes) in lm_runs.items():
-        for shape in shapes[names["q8_0"]]:
-            if shape not in checked[names["q8_0"]]:
-                qcheck("q8_0", shape, 99)
+        recheck_shapes(shapes, 99, lm_check)
         for shape in shapes[int8_name]:
             if shape not in int8_shapes:
                 errs[int8_name] = max(errs[int8_name], check_int8(shape, 99))
@@ -1927,7 +2068,140 @@ def run() -> int:
             f"(plain versions), both fed the CPU's tokens: the top token equal at all "
             f"{compared} of {len(ref_lg)} steps whose CPU top-1/top-2 gap is at least "
             f"{MEGA_REL} of the peak; logits max err / peak over all steps {worst:.3e}")
+
+    phase("check_fsm")
+    from acestep_tpu_torch import constrained, inference
+
+    vocab4k = build_demo_vocab(small_lm.vocab_size)
+    fsm_cfg = constrained.FSMConfig(max_caption_chars=FSM_CAPTION)
+    prompt = ByteTokenizer().encode(lm_pipeline.build_formatted_prompt(LM_CAPTION, LM_LYRICS))
+    for md in ({}, {"bpm": 100, "duration": 120}):
+        dfa = constrained.compile_dfa(vocab4k, fsm_cfg, user_metadata=md)
+        before = snapshot_counts()[0][mega_name]
+        t = time.perf_counter()
+        host_ids, host_text = lm_serving.generate_with_fsm(
+            gpu_p, small_lm, prompt, constrained.MetadataFSM(fsm_cfg, user_metadata=md),
+            vocab4k, None, temperature=0.0, max_new_tokens=256)
+        t_host = time.perf_counter() - t
+        t = time.perf_counter()
+        dev_ids, dev_text = lm_serving.generate_with_fsm_device(
+            gpu_p, small_lm, prompt, dfa, vocab4k, None, temperature=0.0, max_new_tokens=256)
+        t_dev = time.perf_counter() - t
+        require(snapshot_counts()[0][mega_name] > before,
+                f"the constrained decode of the small LM skipped {mega_name}")
+        log(f"small LM, 4096-piece demo vocabulary, user metadata {md}: DFA {dfa.n_states} "
+            f"states, exception width {dfa.exc_tok.shape[1]}; greedy host FSM {len(host_ids)} "
+            f"tokens in {t_host:.3f} s, device DFA {len(dev_ids)} in {t_dev:.3f} s: "
+            f"{dev_text!r}")
+        require(dev_ids == host_ids, f"device DFA and host FSM tokens differ for {md}")
+        require(replay_ok(dev_ids, vocab4k, md, fsm_cfg),
+                f"the device DFA's tokens do not replay valid through MetadataFSM for {md}")
+        # the planted faults live in the tables: a caption state that is not
+        # one drops the budget term, an exception table of -1 every exception
+        faults = {"caption budget dropped": dataclasses.replace(
+                      dfa, is_caption=np.zeros_like(dfa.is_caption)),
+                  "exception table dropped": dataclasses.replace(
+                      dfa, exc_tok=np.full_like(dfa.exc_tok, -1))}
+        for fault, bad_dfa in faults.items():
+            bad, _ = lm_serving.generate_with_fsm_device(
+                gpu_p, small_lm, prompt, bad_dfa, vocab4k, None, temperature=0.0,
+                max_new_tokens=256)
+            caught = bad != host_ids or not replay_ok(bad, vocab4k, md, fsm_cfg)
+            log(f"  planted fault {fault}: {len(bad)} tokens, "
+                f"{'rejected' if caught else 'NOT rejected'}")
+            require(caught, f"planted DFA fault {fault} was not rejected for {md}")
     del cpu_p, gpu_p
+
+    phase("full")
+    free_engine()
+    t = time.perf_counter()
+    engine = pipeline.build_random_engine(device="cuda", quant="q4_k", seed=0)
+    torch.cuda.synchronize()
+    log(f"full-width q4_k engine built on the card in {time.perf_counter() - t:.1f} s; with "
+        f"the 0.6B LM, device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # tools/bench_full_pipeline.py's request
+    full_style = np.random.default_rng(0).integers(0, 150000, (1, 64))
+    full_lyric = np.random.default_rng(1).integers(0, 150000, (1, 256))
+    path_full = [names["q8_0"], names["q4_k"], unit, trio, mega_name]
+    n_full = pipeline.frames_for_duration(LM_DURATION_S) * vae_cfg.hop_length
+    full_runs = {}
+
+    def full_request(lm, key, label, **kw):
+        params = inference.GenerationParams(
+            caption=LM_CAPTION, lyrics=LM_LYRICS, duration=LM_DURATION_S,
+            style_token_ids=full_style, lyric_token_ids=full_lyric, **kw)
+        reset_counts()
+        res = inference.generate_music(engine, lm, params)
+        counts, shapes = snapshot_counts()
+        log(f"{label}: time_costs " + json.dumps({k: round(v, 6)
+                                                  for k, v in res.time_costs.items()}))
+        log(f"{label}: launches " + json.dumps({k: v for k, v in counts.items() if v}))
+        require(all(counts[n] > 0 for n in path_full), f"{label}: a kernel of the path was "
+                f"not launched (need {path_full}, got {counts})")
+        c = res.lm_result.code_indices
+        require(len(c) == LM_CODES and c.dtype == np.int32 and int(c.min()) >= 0
+                and int(c.max()) < 64000, f"{label}: codes {len(c)} in [{c.min()}, {c.max()}]")
+        check_audio([res.dit_result], n_full)
+        require(res.pcm16().shape == (1, n_full, 2), f"{label}: audio {res.pcm16().shape}")
+        full_runs[key] = (res, counts, shapes)
+        return res
+
+    for i in range(3):
+        full_request(pipe, f"plain {i}", f"configs[2] generate_music request {i} "
+                     f"({'warm-up' if i == 0 else 'timed'})", bpm=100, thinking=False)
+    require(np.array_equal(full_runs["plain 1"][0].pcm16(), full_runs["plain 2"][0].pcm16()),
+            "two runs of the configs[2] request differ")
+    # +think: the constrained CoT on the device DFA over the full demo vocabulary
+    vocab_full = build_demo_vocab(QWEN3_0_6B.vocab_size)
+    think = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, DemoVocabTokenizer(vocab_full),
+                                   device="cuda")
+    think_md = {"duration": int(LM_DURATION_S)}
+    for i in range(4):
+        cands = 4 if i == 3 else 1
+        label = (f"configs[2] +think request {i} "
+                 + ("(warm-up, DFA compile)" if i == 0 else "(timed)" if cands == 1
+                    else "with lm_num_candidates=4"))
+        res = full_request(think, f"think {i}", label, thinking=True, lm_num_candidates=cands)
+        lm_res = res.lm_result
+        require(lm_res.cot_route == "device_dfa", f"{label}: the CoT took {lm_res.cot_route}")
+        require(replay_ok(lm_res.cot_ids, vocab_full, think_md, constrained.FSMConfig()),
+                f"{label}: the CoT ids do not replay valid and done through MetadataFSM")
+        md = res.metadata
+        require(all(str(md.get(k, "")).strip() for k in ("bpm", "keyscale", "timesignature",
+                                                         "language", "caption", "genres"))
+                and md.get("duration") == int(LM_DURATION_S), f"{label}: metadata {md}")
+        log(f"{label}: {len(lm_res.cot_ids)} CoT tokens; metadata "
+            + json.dumps({k: md[k] for k in sorted(md)}))
+        if cands > 1:
+            require(len(res.lm_result.candidates) == 4
+                    and "lm_ranking_time_cost" in res.time_costs,
+                    f"{label}: no PMI ranking of 4 candidates")
+    dfa, dfa_s = think.compiled_dfa(think_md)
+    log(f"DFA of the {len(vocab_full)}-piece demo vocabulary: {dfa.n_states} states, exception "
+        f"width {dfa.exc_tok.shape[1]}, masks {dfa.masks_packed.nbytes / 1e6:.1f} MB, compiled "
+        f"in {dfa_s:.2f} s (host), once per (vocabulary, genres, user metadata)")
+    # the stop test: the host reads the done flag once every N steps (16 by
+    # default); N = 1 stops at once, N = 512 runs every step of the budget
+    cot_prompt = think.tok.encode(lm_pipeline.build_formatted_prompt(LM_CAPTION, LM_LYRICS))
+    stop = {}
+    for n in (1, 16, 512, 16):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, _ = lm_serving.generate_with_fsm_device(
+            think.params, QWEN3_0_6B, cot_prompt, dfa, vocab_full, None, temperature=0.0,
+            max_new_tokens=512, check_every=n)
+        stop.setdefault(n, []).append((time.perf_counter() - t, ids))
+    require(all(ids == stop[1][0][1] for runs in stop.values() for _, ids in runs),
+            "the device DFA's greedy tokens depend on how often the done flag is read")
+    log(f"greedy device-DFA CoT, {len(stop[1][0][1])} tokens, s by how often the done flag is "
+        "read: " + json.dumps({f"every {n} steps": [round(t, 4) for t, _ in runs]
+                               for n, runs in stop.items()}))
+    del engine, think
+    free_engine()
+
+    phase("recheck_full")
+    for key, (_, _, shapes) in full_runs.items():
+        recheck_shapes(shapes, 98, lm_check)
 
     phase("timing")
     import torch.nn.functional as F

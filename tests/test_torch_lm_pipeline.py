@@ -156,12 +156,6 @@ def test_sampled_generation_keeps_the_duration_contract(pipes, monkeypatch):
     assert a.cot_text == b.cot_text
 
 
-def test_constrained_cot_raises(pipes):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        pipes[1].generate_with_stop_condition("c", "l", target_duration_s=2.0,
-                                              constrained_cot=True)
-
-
 def test_pipeline_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port_cfg = tcfg.QwenConfig(**{f: getattr(TINY, f) for f in TINY.__dataclass_fields__})
