@@ -1,9 +1,11 @@
-"""Constants the port's text2music and LM planner paths need (own copy; same
+"""Constants the port's engine, codec and LM planner paths need (own copy; same
 values as the JAX package's constants module)."""
 
 SAMPLE_RATE = 48000
 LATENT_HOP = 1920                 # samples per latent frame -> 25 Hz
 LATENT_RATE = SAMPLE_RATE / LATENT_HOP
+LATENT_DIM = 64
+TIMBRE_FIX_FRAMES = 750           # 30 s reference-audio window of the timbre encoder
 
 MIN_DURATION_S = 10.0
 MAX_DURATION_S = 600.0
@@ -11,9 +13,13 @@ MAX_DURATION_S = 600.0
 FRAME_BUCKET = 256                # latent frames per sequence bucket (~10.24 s)
 TOKEN_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
+TASK_TYPES = ("text2music", "repaint", "cover", "extract", "lego", "complete")
+TURBO_TASKS = ("text2music", "repaint", "cover")
+
 # LM planner (5 Hz audio codes)
 LM_CODE_RATE = 5                  # LM audio codes per second
 AUDIO_CODEBOOK_SIZE = 64000       # <|audio_code_N|>, N in [0, 64000)
+CODES_PER_LATENT = 5              # 5 Hz codes -> 25 Hz latents
 
 # The LM planners were fine-tuned on these exact prompts: they are checkpoint
 # data and must match byte for byte.

@@ -2,14 +2,13 @@
 
 ``generate_music``: the optional LM phase (CoT metadata + 5 Hz codes) ->
 metadata merge -> PMI ranking of the candidates -> DiT diffusion + VAE decode
--> audio.  Plus the LM-only flows (``understand_music``, ``create_sample``,
-``format_sample``).
-
-The port serves text2music: another task (repaint, cover, extract, lego,
-complete; an unknown name means text2music, as in the JAX package), source or
-reference latents, or codec parameters (the LM codes as 25 Hz latent hints)
-raise NotImplementedError, as ``pipeline.AceStepEngine.build_context_latents``
-does.
+-> audio, for every task of the engine (an unknown task name means
+text2music, as in the JAX package), with source and reference latents passed
+through.  With codec parameters, a text2music request with LM codes becomes a
+cover of the codes' 25 Hz latent hints (``models/codec.codes_to_latents``).
+``understand_audio``: a waveform -> 5 Hz codes (VAE encode, codec tokenize)
+-> the LM's understanding flow.  Plus the LM-only flows
+(``understand_music``, ``create_sample``, ``format_sample``).
 """
 
 from __future__ import annotations
@@ -22,8 +21,13 @@ import numpy as np
 import torch
 
 from acestep_tpu_torch import scoring
+from acestep_tpu_torch.constants import TASK_TYPES
 from acestep_tpu_torch.lm_pipeline import LMPipeline, LMResult, indices_to_codes
-from acestep_tpu_torch.pipeline import AceStepEngine, GenerationRequest, GenerationResult
+from acestep_tpu_torch.models import codec
+from acestep_tpu_torch.pipeline import (
+    AceStepEngine, GenerationRequest, GenerationResult, frames_for_duration,
+)
+from acestep_tpu_torch.training.dataset_builder import audio_to_codes
 
 
 @dataclasses.dataclass
@@ -102,25 +106,16 @@ class MusicResult:
         return self.dit_result.audio_i16
 
 
-def _check_ported(params: GenerationParams, codec_params) -> None:
-    later = "ported in a later slice (cover, repaint, lego and the codec)"
-    if params.task_type in ("repaint", "cover", "extract", "lego", "complete"):
-        raise NotImplementedError(f"task {params.task_type!r} is not {later}")
-    if params.refer_latents is not None or params.src_latents is not None:
-        raise NotImplementedError(f"refer_latents / src_latents are not {later}")
-    if codec_params is not None:
-        raise NotImplementedError(f"codec_params (LM code hints) are not {later}")
-
-
 def generate_music(engine: AceStepEngine, lm: Optional[LMPipeline], params: GenerationParams,
                    config: Optional[GenerationConfig] = None,
                    codec_params: Optional[Dict[str, Any]] = None, *,
                    noise: Optional[torch.Tensor] = None,
                    sde_noise: Optional[torch.Tensor] = None) -> MusicResult:
-    """The full request: LM phase -> metadata merge -> DiT phase -> decode.
-    ``noise`` / ``sde_noise`` go to ``AceStepEngine.generate`` (tests pass
-    the JAX package's draws)."""
-    _check_ported(params, codec_params)
+    """The full request (inference.py:103-228): LM phase -> metadata merge ->
+    DiT phase -> decode.  ``codec_params`` (``models/codec``) turn a
+    text2music request's LM codes into src latents of a cover.  ``noise`` /
+    ``sde_noise`` go to ``AceStepEngine.generate`` (tests pass the JAX
+    package's draws)."""
     config = config or GenerationConfig()
     time_costs: Dict[str, float] = {}
     t0 = time.perf_counter()
@@ -175,9 +170,22 @@ def generate_music(engine: AceStepEngine, lm: Optional[LMPipeline], params: Gene
     req = GenerationRequest(
         duration_s=duration, style_token_ids=params.style_token_ids,
         style_mask=params.style_mask, lyric_token_ids=params.lyric_token_ids,
-        lyric_mask=params.lyric_mask, task="text2music", seeds=config.seeds,
-        shift=params.shift, timesteps=params.timesteps, batch_size=config.batch_size,
-        infer_method=params.infer_method)
+        lyric_mask=params.lyric_mask, refer_latents=params.refer_latents,
+        task=params.task_type if params.task_type in TASK_TYPES else "text2music",
+        src_latents=params.src_latents, track_name=params.track_name,
+        complete_track_classes=params.complete_track_classes,
+        repaint_start_s=params.repaint_start, repaint_end_s=params.repaint_end,
+        audio_cover_strength=params.audio_cover_strength, seeds=config.seeds,
+        shift=params.shift, timesteps=params.timesteps, infer_method=params.infer_method,
+        batch_size=config.batch_size)
+    # code hints: the LM codes -> 25 Hz latent hints, the source of a cover
+    if (lm_result is not None and codec_params is not None
+            and lm_result.code_indices.size > 0 and req.src_latents is None
+            and params.task_type == "text2music"):
+        hints = codec.codes_to_latents(codec_params, lm_result.code_indices,
+                                       frames_for_duration(duration))
+        req.src_latents = hints.float().cpu().numpy()
+        req.task = "cover"
     dit_result = engine.generate(req, noise=noise, sde_noise=sde_noise)
     time_costs.update(dit_result.time_costs)
     time_costs["total_time_cost"] = time.perf_counter() - t0
@@ -189,6 +197,14 @@ def generate_music(engine: AceStepEngine, lm: Optional[LMPipeline], params: Gene
 def understand_music(lm: LMPipeline, audio_codes: str, **kw) -> Dict[str, Any]:
     """Audio codes -> metadata and lyrics."""
     return lm.understand_audio_from_codes(audio_codes, **kw)
+
+
+def understand_audio(engine: AceStepEngine, lm: LMPipeline, codec_params: Dict[str, Any],
+                     audio: np.ndarray, **kw) -> Dict[str, Any]:
+    """A waveform [L, C] -> metadata and lyrics: VAE encode -> 5 Hz codes (the
+    codec's tokenize) -> the LM's understanding flow (inference.py:236-249)."""
+    codes = audio_to_codes(engine, codec_params, np.asarray(audio, np.float32))
+    return lm.understand_audio_from_codes(codes, **kw)
 
 
 def create_sample(lm: LMPipeline, query: str, **kw) -> Dict[str, Any]:

@@ -1,6 +1,6 @@
 """ACE-Step DiT denoiser (flow-matching diffusion transformer) in PyTorch: port of
-the JAX package's models/dit.py for text2music (the timbre encoder is not
-ported yet).
+the JAX package's models/dit.py, with its three condition encoders (lyric,
+timbre, style projection).
 
 Decoder layer: AdaLN from a 6-row ``scale_shift_table`` plus the timestep
 projection, GQA self-attention with NEOX RoPE (every other layer a bidirectional
@@ -14,7 +14,10 @@ ones), in the decoder and in the encoder stacks alike.
 
 The decoder runs on stacked layers (:func:`stack_params`) with q||k||v and
 gate||up fused into one weight stream each (:func:`fuse_params`), as the JAX
-engine does; every linear may carry a quantized weight.
+engine does; every linear may carry a quantized weight.  The encoder stacks
+(``lyric_layers``, ``timbre_layers``) stay lists of per-layer dicts, which
+``iter_layers`` walks (the JAX ``stack_params`` stacks them for its scan; the
+function is the same).
 
 Two opt-in switches of :func:`forward` stand for the JAX package's
 environment knobs (dit.py:583-607, qmm.py:348-367):
@@ -344,6 +347,25 @@ def lyric_encoder(params: Params, cfg: DiTConfig, lyric_hidden_states,
     x = linear(lyric_hidden_states, p["kernel"], p.get("bias"))
     x = _encoder_stack(params["lyric_layers"], cfg, x, lyric_mask)
     return rms_norm(x, params["lyric_norm"], cfg.rms_norm_eps)
+
+
+def timbre_encoder(params: Params, cfg: DiTConfig, refer_latents,
+                   refer_mask: Optional[torch.Tensor] = None):
+    """Reference-audio latents [B, L, timbre_hidden] -> one timbre token
+    [B, 1, H]: a linear, the special token prepended (valid in the mask), the
+    encoder stack, the norm, and the first position (dit.py:748-771).  Runs
+    in the latents' dtype (f32 from the engine), as the JAX function does."""
+    p = params["timbre_embed"]
+    x = linear(refer_latents, p["kernel"], p.get("bias"))
+    special = params.get("timbre_special_token")
+    if special is not None:
+        tok = special.to(x.dtype)[None, None, :].expand(x.shape[0], 1, x.shape[2])
+        x = torch.cat([tok, x], dim=1)
+        if refer_mask is not None:
+            refer_mask = torch.cat([torch.ones_like(refer_mask[:, :1]), refer_mask], dim=1)
+    x = _encoder_stack(params["timbre_layers"], cfg, x, refer_mask)
+    x = rms_norm(x, params["timbre_norm"], cfg.rms_norm_eps)
+    return x[:, :1, :]
 
 
 def text_projector(params: Params, style_hidden):

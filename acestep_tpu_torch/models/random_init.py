@@ -125,6 +125,10 @@ class RandomInit:
             "lyric_embed": self.dense(cfg.text_hidden_dim, h),
             "lyric_layers": [enc_layer() for _ in range(cfg.num_lyric_encoder_hidden_layers)],
             "lyric_norm": self.ones(h),
+            "timbre_embed": self.dense(cfg.timbre_hidden_dim, h),
+            "timbre_layers": [enc_layer() for _ in range(cfg.num_timbre_encoder_hidden_layers)],
+            "timbre_norm": self.ones(h),
+            "timbre_special_token": self.zeros(h),
         }
 
     def qwen(self, cfg: QwenConfig):

@@ -1,5 +1,5 @@
 """Oobleck VAE (48 kHz stereo) in PyTorch: port of the JAX package's
-models/vae.py decode / encode / tiled int16 decode.
+models/vae.py decode / encode / posterior draw / tiled int16 decode.
 
 Precision: everything computes in float32 (the Snake/ConvTranspose chain
 degrades audibly in reduced precision).  On the card a float32 convolution
@@ -17,7 +17,9 @@ folded at conversion time.
 Res units dispatch as in the JAX decoder (vae.py:227-275): a 128-channel block
 runs its three units as one fused trio kernel, a 256-channel block unit by unit
 through the fused unit kernel (``ops.cuda.vae_resunit``); wider blocks and the
-transposed convs are plain torch convs.
+transposed convs are plain torch convs.  The encoder dispatches the same way:
+at full width its blocks 0-1 (128 channels, at L and L / 2) take the trio and
+block 2 (256 channels, at L / 8) the unit.
 
 The tiled decode (vae.py:484-700) groups its overlap-discard windows by (size,
 trims), stacks each group's (window, item) rows window-major and decodes at
@@ -102,9 +104,10 @@ def _res_trio(blk: Params, x: torch.Tensor) -> torch.Tensor:
 # encode / decode
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def encode(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tensor:
-    """audio [B, L, 2] -> posterior MEAN latents [B, L//hop, 64]."""
+def _encoder(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tensor:
+    """audio [B, L, 2] -> the encoder's [B, L//hop, 2 * 64] (mean | scale).
+    Block i runs its res units at L / prod(ratios[:i]): the 128-channel
+    blocks through the trio kernel, the 256-channel one unit by unit."""
     p = params["encoder"]
     x = audio.to(p["conv1"]["w"].dtype)
     x = conv1d(x, p["conv1"]["w"], p["conv1"].get("b"), padding=3)
@@ -114,9 +117,28 @@ def encode(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tensor:
         x = conv1d(x, blk["conv1"]["w"], blk["conv1"].get("b"), stride=s,
                    padding=math.ceil(s / 2))
     x = snake(x, **p["snake1"])
-    x = conv1d(x, p["conv2"]["w"], p["conv2"].get("b"), padding=1)
-    mean = x[..., : x.shape[-1] // 2]
-    return mean.float()
+    return conv1d(x, p["conv2"]["w"], p["conv2"].get("b"), padding=1)
+
+
+@torch.no_grad()
+def encode(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tensor:
+    """audio [B, L, 2] -> posterior MEAN latents [B, L//hop, 64]."""
+    x = _encoder(params, cfg, audio)
+    return x[..., : x.shape[-1] // 2].float()
+
+
+@torch.no_grad()
+def encode_and_sample(params: Params, cfg: VAEConfig, audio: torch.Tensor,
+                      draw: torch.Tensor) -> torch.Tensor:
+    """A draw z ~ posterior: ``mean + std * draw`` with the softplus std
+    ``where(scale > 20, scale, log1p(exp(min(scale, 20)))) + 1e-4``
+    (vae.py:295-311).  ``draw`` [B, L//hop, 64] is the standard normal draw,
+    given by the caller (torch cannot reproduce ``jax.random``)."""
+    x = _encoder(params, cfg, audio.float())
+    mean, scale = x[..., : x.shape[-1] // 2], x[..., x.shape[-1] // 2:]
+    std = torch.where(scale > 20.0, scale,
+                      torch.log1p(torch.exp(torch.clamp(scale, max=20.0)))) + 1e-4
+    return mean + std * draw.to(mean.device, torch.float32)
 
 
 @torch.no_grad()

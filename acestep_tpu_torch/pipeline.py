@@ -1,12 +1,21 @@
-"""End-to-end text2music pipeline on the card: port of the JAX package's
-pipeline.py main path.
+"""End-to-end generation pipeline on the card: port of the JAX package's
+pipeline.py, every task of its engine.
 
 Flow:
   style tokens -> Qwen3 text encoder -> text_projector       \\
-  lyric tokens -> Qwen embeddings -> DiT lyric encoder        > pack [lyric | style]
-  context_latents = concat(silence src latents, chunk mask)
-  8-step flow-matching Euler loop (DiT)
+  lyric tokens -> Qwen embeddings -> DiT lyric encoder        > pack [lyric | timbre | style]
+  refer latents -> DiT timbre encoder (one token a clip)     /
+  context_latents = concat(src latents, chunk mask): silence and 1 everywhere
+    for text2music; the source for cover / extract / complete / spanless
+    lego; the source with its span silenced and masked for repaint and lego
+    with a span
+  8-step turbo Euler loop (DiT; cover switches to the non-cover condition
+    after ``round(steps * strength)`` steps), or the base model's CFG / ADG
+    loop when ``guidance_scale != 1``
   tiled VAE decode -> int16 waveform at the global peak scale
+
+Source and reference audio reach the engine as latents: ``encode_src_audio``
+and ``encode_refer_audio`` VAE-encode a waveform in 128-frame windows.
 
 Latent lengths are bucketed (frames rounded up to FRAME_BUCKET); each item's
 validity (``durations_s``: a batch may mix durations in one bucket) is carried
@@ -39,7 +48,8 @@ import torch
 from acestep_tpu_torch import memory_planner, sampler
 from acestep_tpu_torch.config import DiTConfig, QwenConfig, VAEConfig
 from acestep_tpu_torch.constants import (
-    FRAME_BUCKET, LATENT_RATE, MAX_DURATION_S, MIN_DURATION_S, TOKEN_BUCKETS,
+    FRAME_BUCKET, LATENT_RATE, MAX_DURATION_S, MIN_DURATION_S, TIMBRE_FIX_FRAMES,
+    TOKEN_BUCKETS,
 )
 from acestep_tpu_torch.models import dit, qwen, vae
 from acestep_tpu_torch.models.random_init import RandomInit
@@ -66,9 +76,13 @@ def bucket_frames(frames: int) -> int:
 
 
 def pack_sequences(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """Concatenate (hidden [B, L_i, H], mask [B, L_i]) parts along L, then
+    """Concatenate (hidden [B, L_i, H], mask [B, L_i]) parts along L (in the
+    promoted dtype: f32 when the timbre tokens are among them), then
     stable-partition each row so valid tokens come first."""
-    hidden = torch.cat([h for h, _ in parts], dim=1)
+    dt = parts[0][0].dtype
+    for h, _ in parts[1:]:
+        dt = torch.promote_types(dt, h.dtype)
+    hidden = torch.cat([h.to(dt) for h, _ in parts], dim=1)
     mask = torch.cat([m for _, m in parts], dim=1)
     order = torch.argsort((mask == 0).to(torch.int32), dim=1, stable=True)
     packed_h = torch.gather(hidden, 1, order[:, :, None].expand(-1, -1, hidden.shape[2]))
@@ -152,38 +166,64 @@ def _pad_tokens(ids, mask, device):
 
 @torch.no_grad()
 def encode_condition(dit_params, text_params, dit_cfg: DiTConfig, text_cfg: QwenConfig,
-                     style_ids, style_mask, lyric_ids, lyric_mask):
-    """Lyric + style condition -> (packed_hidden [B, Ll+Ls, H], packed_mask)."""
+                     style_ids, style_mask, lyric_ids, lyric_mask, refer_latents=None,
+                     refer_frame_mask=None, refer_clip_mask=None):
+    """Lyric + timbre + style condition -> (packed_hidden [B, Ll+n+Ls, H],
+    packed_mask) (pipeline.py:94-117).  ``refer_latents`` [B, n, Lr, C] with
+    its frame mask [B, n, Lr] gives one timbre token a clip, valid where
+    ``refer_clip_mask`` [B, n] is 1."""
     parts = []
     if lyric_ids is not None:
         emb = qwen.embeddings_only(text_params, lyric_ids)
         parts.append((dit.lyric_encoder(dit_params, dit_cfg, emb, lyric_mask), lyric_mask))
+    if refer_latents is not None:
+        b, n, lr, c = refer_latents.shape
+        fm = None if refer_frame_mask is None else refer_frame_mask.reshape(b * n, lr)
+        toks = dit.timbre_encoder(dit_params, dit_cfg, refer_latents.reshape(b * n, lr, c), fm)
+        parts.append((toks.reshape(b, n, -1), refer_clip_mask))
     if style_ids is not None:
         hs = qwen.forward(text_params, text_cfg, style_ids, style_mask)
         parts.append((dit.text_projector(dit_params, hs), style_mask))
     if not parts:
-        raise ValueError("empty condition: need style or lyric input")
+        raise ValueError("empty condition: need style, lyric or timbre input")
     return pack_sequences(parts)
 
 
 @dataclasses.dataclass
 class GenerationRequest:
-    """One text2music request, pre-tokenized.  ``durations_s`` gives each item
-    of a batch its own duration (configs[3]'s mixed-duration batches share one
-    frame bucket); unset, every item lasts ``duration_s``."""
+    """One request, pre-tokenized (the JAX package's fields).  ``durations_s``
+    gives each item of a batch its own duration (configs[3]'s mixed-duration
+    batches share one frame bucket); unset, every item lasts ``duration_s``.
+    ``guidance_scale != 1`` selects the base model's CFG loop over an
+    ``infer_steps``-long shifted schedule."""
 
     duration_s: float = 30.0
     style_token_ids: Optional[np.ndarray] = None      # [B, Ls]
     style_mask: Optional[np.ndarray] = None
     lyric_token_ids: Optional[np.ndarray] = None      # [B, Ll]
     lyric_mask: Optional[np.ndarray] = None
-    task: str = "text2music"
+    refer_latents: Optional[np.ndarray] = None        # [B, n_refer, Lr, 64]
+    refer_mask: Optional[np.ndarray] = None           # [B, n_refer]
+    task: str = "text2music"      # text2music | repaint | cover | extract | lego | complete
+    src_latents: Optional[np.ndarray] = None          # [B, T, 64] source latents
+    repaint_start_s: float = 0.0
+    repaint_end_s: float = -1.0                       # -1: to the end
+    audio_cover_strength: float = 1.0
+    track_name: Optional[str] = None                  # extract / lego target track
+    complete_track_classes: Optional[Sequence[str]] = None
     seeds: Optional[Sequence[int]] = None
     shift: float = 3.0
     timesteps: Optional[Sequence[float]] = None
-    batch_size: int = 1
-    durations_s: Optional[Sequence[float]] = None
     infer_method: str = "ode"                         # "ode" or "sde"
+    batch_size: int = 1
+    guidance_scale: float = 1.0
+    infer_steps: int = 8
+    cfg_interval_start: float = 0.0
+    cfg_interval_end: float = 1.0
+    use_adg: bool = False
+    uncond_style_token_ids: Optional[np.ndarray] = None   # negative-prompt tokens
+    uncond_style_mask: Optional[np.ndarray] = None
+    durations_s: Optional[Sequence[float]] = None
 
 
 class GenerationResult:
@@ -273,29 +313,79 @@ class AceStepEngine:
             return s[:, :t]
         return s.repeat(1, int(math.ceil(t / s.shape[1])), 1)[:, :t]
 
+    def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(self.device, dtype)
+
+    def encode_timbre(self, refer_latents, refer_mask=None):
+        """Reference latents [B, n, Lr, 64] -> (timbre tokens [B, n, H], clip
+        mask [B, n], ones unless given), every frame valid (pipeline.py:407-419)."""
+        b, n, lr, c = np.asarray(refer_latents).shape
+        toks = dit.timbre_encoder(self.dit_params, self.dit_cfg,
+                                  self._tensor(refer_latents).reshape(b * n, lr, c))
+        mask = (torch.ones((b, n), dtype=torch.int32, device=self.device) if refer_mask is None
+                else self._tensor(refer_mask, torch.int32))
+        return toks.reshape(b, n, -1), mask
+
     def build_condition(self, req: GenerationRequest, b: int):
+        """Pack [lyric | timbre | style] valid tokens first (pipeline.py:407-459):
+        each reference clip zero-padded or cut to TIMBRE_FIX_FRAMES with its
+        frame mask, the clip mask ones unless given."""
         style_ids = style_mask = lyric_ids = lyric_mask = None
+        refer = refer_fm = refer_cm = None
         if req.lyric_token_ids is not None:
             lyric_ids, lyric_mask = _pad_tokens(req.lyric_token_ids, req.lyric_mask, self.device)
+        if req.refer_latents is not None:
+            r = np.asarray(req.refer_latents, np.float32)
+            bb, n, lr, _ = r.shape
+            fm = np.ones((bb, n, lr), np.int32)
+            if lr < TIMBRE_FIX_FRAMES:
+                widths = ((0, 0), (0, 0), (0, TIMBRE_FIX_FRAMES - lr))
+                r = np.pad(r, widths + ((0, 0),))
+                fm = np.pad(fm, widths)
+            refer = self._tensor(r[:, :, :TIMBRE_FIX_FRAMES])
+            refer_fm = self._tensor(fm[:, :, :TIMBRE_FIX_FRAMES], torch.int32)
+            refer_cm = self._tensor(np.ones((bb, n), np.int32) if req.refer_mask is None
+                                    else np.asarray(req.refer_mask, np.int32), torch.int32)
         if req.style_token_ids is not None:
             style_ids, style_mask = _pad_tokens(req.style_token_ids, req.style_mask, self.device)
         enc, mask = encode_condition(self.dit_params, self.text_params, self.dit_cfg,
-                                     self.text_cfg, style_ids, style_mask, lyric_ids, lyric_mask)
+                                     self.text_cfg, style_ids, style_mask, lyric_ids, lyric_mask,
+                                     refer, refer_fm, refer_cm)
         if enc.shape[0] == 1 and b > 1:
-            enc = enc.expand(b, -1, -1)
-            mask = mask.expand(b, -1)
+            enc, mask = enc.expand(b, -1, -1), mask.expand(b, -1)
         return enc, mask
 
-    def build_context_latents(self, req: GenerationRequest, b: int, t: int) -> torch.Tensor:
-        """context = concat(src latents, chunk mask) along channels; text2music
-        uses silence as src and regenerates everywhere (mask 1)."""
-        if req.task != "text2music":
-            raise NotImplementedError(f"task {req.task!r} is not ported yet")
+    def build_context_latents(self, req: GenerationRequest, b: int, t: int,
+                              t_valid: Optional[int] = None) -> torch.Tensor:
+        """context = concat(src latents, chunk mask) along channels
+        (pipeline.py:463-507; chunk mask 1 = regenerate here).
+
+        text2music, or no source: silence, mask 1.  repaint, and lego with
+        ``repaint_end_s > repaint_start_s``: the span ``[int(start * 25),
+        min(end, t_valid))`` (``end`` = ``t_valid`` for ``repaint_end_s < 0``)
+        has mask 1 and the silence latents in place of the source; mask 0
+        elsewhere.  cover, extract, complete and spanless lego: the source,
+        mask 1.  The source is zero-padded or cut to ``t`` frames."""
         cfg = self.dit_cfg
+        t_valid = t if t_valid is None else t_valid
         src_dim = min(cfg.audio_acoustic_hidden_dim, cfg.context_dim)
-        src = self._silence_frames(t).expand(b, t, -1)[:, :, :src_dim].float()
-        chunk = torch.ones((b, t, cfg.context_dim - src_dim), dtype=torch.float32,
-                           device=self.device)
+        mask_dim = cfg.context_dim - src_dim
+        sil = self._silence_frames(t).expand(b, t, -1)[:, :, :src_dim].float()
+        chunk = torch.ones((b, t, mask_dim), dtype=torch.float32, device=self.device)
+        if req.task == "text2music" or req.src_latents is None:
+            return torch.cat([sil, chunk], dim=-1)
+        src = self._tensor(req.src_latents)
+        if src.shape[1] < t:
+            src = torch.nn.functional.pad(src, (0, 0, 0, t - src.shape[1]))
+        src = src[:, :t, :src_dim].expand(b, t, src_dim)
+        if req.task == "repaint" or (req.task == "lego"
+                                     and req.repaint_end_s > req.repaint_start_s):
+            start = int(req.repaint_start_s * LATENT_RATE)
+            end = t_valid if req.repaint_end_s < 0 else int(req.repaint_end_s * LATENT_RATE)
+            frames = torch.arange(t, device=self.device)
+            inside = ((frames >= start) & (frames < min(end, t_valid)))[None, :, None]
+            chunk = inside.float().expand(b, t, mask_dim)
+            src = torch.where(inside, sil, src)
         return torch.cat([src, chunk], dim=-1)
 
     def make_noise(self, seeds: Sequence[int], t: int) -> torch.Tensor:
@@ -308,14 +398,81 @@ class AceStepEngine:
                                      generator=g, device=self.device))
         return torch.cat(parts, dim=0)
 
+    def _stereo(self, audio) -> np.ndarray:
+        """A waveform [L] or [L, C] as f32 [L, channels] (mono repeated)."""
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim == 1:
+            audio = audio[:, None]
+        if audio.shape[1] == 1:
+            audio = np.repeat(audio, self.vae_cfg.audio_channels, axis=1)
+        return audio
+
+    def _encode_audio(self, audio: np.ndarray, max_frames: Optional[int] = None) -> torch.Tensor:
+        """Whole latent frames of a stereo waveform (at most ``max_frames``),
+        VAE-encoded in 128-frame windows of 32 overlap: [1, T, 64] on the device."""
+        hop = self.vae_cfg.hop_length
+        frames = audio.shape[0] // hop
+        t_frames = max(1, frames if max_frames is None else min(frames, max_frames))
+        return vae.tiled_encode(self.vae_params, self.vae_cfg,
+                                self._tensor(audio[None, :t_frames * hop]),
+                                chunk_frames=128, overlap_frames=32)
+
+    def encode_src_audio(self, audio) -> np.ndarray:
+        """Source waveform [L, C] (or mono [L]) -> src latents [1, T, 64] for
+        the repaint / cover / extract / lego / complete tasks, every frame kept
+        (pipeline.py:887-904)."""
+        return self._encode_audio(self._stereo(audio)).cpu().numpy()
+
+    def encode_refer_audio(self, audios, max_frames: Optional[int] = None) -> np.ndarray:
+        """Reference clips -> timbre latents [1, n, Lr, 64]: each clip encoded
+        and cut to ``max_frames`` (TIMBRE_FIX_FRAMES, 30 s), the clips
+        zero-padded to the longest (pipeline.py:906-936)."""
+        max_frames = max_frames or TIMBRE_FIX_FRAMES
+        clips = [self._encode_audio(self._stereo(a), max_frames)[0].cpu().numpy()
+                 for a in audios]
+        out = np.zeros((1, len(clips), max(c.shape[0] for c in clips), clips[0].shape[1]),
+                       np.float32)
+        for i, c in enumerate(clips):
+            out[0, i, :c.shape[0]] = c
+        return out
+
+    def cover_switch(self, req: GenerationRequest, b: int, t: int, t_valid: int,
+                     n_steps: int, enc, enc_mask) -> Dict[str, object]:
+        """The cover task's switch (pipeline.py:588-614) as ``sample_latents``
+        keywords, or {} when ``req`` has none: for ``0 <= strength < 1``, after
+        ``round(n_steps * strength)`` steps the condition with its timbre
+        clips masked out and the silence context."""
+        if req.task != "cover" or not 0.0 <= req.audio_cover_strength < 1.0:
+            return {}
+        enc_nc, mask_nc = enc, enc_mask
+        if req.refer_latents is not None:
+            shape = np.asarray(req.refer_latents).shape[:2]
+            enc_nc, mask_nc = self.build_condition(
+                dataclasses.replace(req, refer_mask=np.zeros(shape, np.int32)), b)
+        ctx_nc = self.build_context_latents(
+            dataclasses.replace(req, task="text2music", src_latents=None), b, t, t_valid)
+        return dict(cover_steps=int(round(n_steps * req.audio_cover_strength)),
+                    encoder_hidden_states_non_cover=enc_nc, context_latents_non_cover=ctx_nc,
+                    encoder_attn_mask_non_cover=mask_nc)
+
+    def uncond_condition(self, req: GenerationRequest, b: int, enc, enc_mask):
+        """The CFG loop's uncond condition: ``uncond_style_token_ids`` alone
+        (no lyric, no timbre), else the same packed condition with a zero mask."""
+        if req.uncond_style_token_ids is None:
+            return enc, torch.zeros_like(enc_mask)
+        return self.build_condition(dataclasses.replace(
+            req, style_token_ids=req.uncond_style_token_ids, style_mask=req.uncond_style_mask,
+            lyric_token_ids=None, lyric_mask=None, refer_latents=None, refer_mask=None), b)
+
     @torch.no_grad()
     def generate(self, req: GenerationRequest, noise: Optional[torch.Tensor] = None,
                  sde_noise: Optional[torch.Tensor] = None) -> GenerationResult:
-        """text2music for one request (pipeline.py:528-863).  ``noise [B,
+        """One request of any task (pipeline.py:528-863).  ``noise [B,
         T_bucket, 64]`` overrides the seeded draw (tests pass the JAX
         package's noise); so does ``sde_noise [n_steps, B, T_bucket, 64]`` for
         the SDE sampler's per-step draws, which otherwise come from a
-        generator seeded with the first seed."""
+        generator seeded with the first seed.  The cover switch's and the CFG
+        uncond's conditions count in ``condition_time_cost``."""
         t0 = time.perf_counter()
         time_costs: Dict[str, float] = {}
         b = req.batch_size
@@ -332,8 +489,15 @@ class AceStepEngine:
         t_valid = max(item_valid)
         t = bucket_frames(t_valid)
 
+        use_cfg = req.guidance_scale != 1.0
+        schedule = (sampler.get_base_timestep_schedule(req.infer_steps, req.shift) if use_cfg
+                    else sampler.get_timestep_schedule(req.shift, req.timesteps))
         enc, enc_mask = self.build_condition(req, b)
-        ctx = self.build_context_latents(req, b, t)
+        ctx = self.build_context_latents(req, b, t, t_valid)
+        if use_cfg:
+            enc_u, enc_u_mask = self.uncond_condition(req, b, enc, enc_mask)
+        else:
+            cover_kw = self.cover_switch(req, b, t, t_valid, len(schedule), enc, enc_mask)
         self._sync()
         time_costs["condition_time_cost"] = time.perf_counter() - t0
 
@@ -346,17 +510,25 @@ class AceStepEngine:
         if t != t_valid or len(set(item_valid)) > 1:
             valid = torch.tensor(item_valid, dtype=torch.int64, device=self.device)[:, None]
             attn_mask = (torch.arange(t, device=self.device)[None, :] < valid).to(torch.int32)
-        schedule = sampler.get_timestep_schedule(req.shift, req.timesteps)
 
         t1 = time.perf_counter()
         sde_gen = None
         if req.infer_method == "sde" and sde_noise is None:
             sde_gen = torch.Generator(device=self.device).manual_seed(int(seeds[0]))
-        latents = sampler.sample_latents(self.dit_params, self.dit_cfg, noise, ctx, enc,
-                                         enc_mask, schedule, attn_mask=attn_mask,
-                                         dit_mega=self.dit_mega, int8_act=self.int8_act,
-                                         infer_method=req.infer_method, sde_noise=sde_noise,
-                                         sde_generator=sde_gen)
+        if use_cfg:
+            latents = sampler.sample_latents_cfg(
+                self.dit_params, self.dit_cfg, noise, ctx, enc, enc_mask, enc_u, enc_u_mask,
+                schedule, guidance_scale=req.guidance_scale,
+                cfg_interval_start=req.cfg_interval_start,
+                cfg_interval_end=req.cfg_interval_end, use_adg=req.use_adg,
+                infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
+                attn_mask=attn_mask, int8_act=self.int8_act)
+        else:
+            latents = sampler.sample_latents(
+                self.dit_params, self.dit_cfg, noise, ctx, enc, enc_mask, schedule,
+                attn_mask=attn_mask, dit_mega=self.dit_mega, int8_act=self.int8_act,
+                infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
+                **cover_kw)
         self._sync()
         time_costs["diffusion_time_cost"] = time.perf_counter() - t1
         time_costs["diffusion_per_step_time_cost"] = (

@@ -10,9 +10,10 @@ Shorter items pad up to the batch's bucket; per-item durations carry their
 validity.  Queued priority rises one level per ``AGING_S`` so nothing starves.
 One worker thread runs the merged batches one at a time.
 
-The port's ``GenerationRequest`` has only text2music's fields, so the merge
-key keeps task, shift, timesteps and the sampler (ODE or SDE), and nothing of
-timbre or source audio is merged.
+The merge key holds every field that changes the computed function: task,
+schedule, sampler, the CFG fields, cover strength, repaint span and track.
+Reference latents merge with their clip masks (a request without them gets
+masked-out clips), source latents zero-padded to the longest.
 """
 
 from __future__ import annotations
@@ -55,7 +56,10 @@ def _merge_key(req: GenerationRequest) -> Tuple:
     from the first request that changes the computed function.  Frame and
     token buckets are not in it: shorter requests pad up."""
     return (req.task, req.shift, tuple(req.timesteps) if req.timesteps else None,
-            req.infer_method)
+            req.infer_method, req.infer_steps, req.guidance_scale, req.use_adg,
+            req.cfg_interval_start, req.cfg_interval_end, req.audio_cover_strength,
+            req.repaint_start_s, req.repaint_end_s, req.track_name,
+            tuple(req.complete_track_classes) if req.complete_track_classes else None)
 
 
 def _req_frames(req: GenerationRequest) -> int:
@@ -63,11 +67,12 @@ def _req_frames(req: GenerationRequest) -> int:
 
 
 def _shape_key(req: GenerationRequest) -> Tuple:
-    """Merge key plus frame and token buckets: requests sharing it merge with
-    no padding."""
+    """Merge key plus frame and token buckets and the reference clip count:
+    requests sharing it merge with no padding."""
     style_b = _token_bucket(req.style_token_ids.shape[1]) if req.style_token_ids is not None else 0
     lyric_b = _token_bucket(req.lyric_token_ids.shape[1]) if req.lyric_token_ids is not None else 0
-    return _merge_key(req) + (_req_frames(req), style_b, lyric_b)
+    timbre = req.refer_latents.shape[1] if req.refer_latents is not None else 0
+    return _merge_key(req) + (_req_frames(req), style_b, lyric_b, timbre)
 
 
 def _pad_ids(ids: np.ndarray, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -82,7 +87,9 @@ def _pad_ids(ids: np.ndarray, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
 def merge_requests(reqs: List[GenerationRequest]) -> GenerationRequest:
     """Merge compatible requests into one batched request: durations and seeds
     per item, token ids padded to the widest bucket (a request without a
-    branch gets a masked-out row)."""
+    branch gets a masked-out row), reference latents padded to the most clips
+    and frames with a clip mask of each request's clips, source latents
+    zero-padded to the longest (batcher.py:53-175)."""
     if not reqs:
         raise ValueError("nothing to merge")
     key = _merge_key(reqs[0])
@@ -116,6 +123,39 @@ def merge_requests(reqs: List[GenerationRequest]) -> GenerationRequest:
 
     out.style_token_ids, out.style_mask = cat("style_token_ids")
     out.lyric_token_ids, out.lyric_mask = cat("lyric_token_ids")
+
+    def rows(r, v):
+        return np.broadcast_to(v, (r.batch_size,) + v.shape[1:]) if v.shape[0] == 1 else v
+
+    refers = [r.refer_latents for r in reqs if r.refer_latents is not None]
+    if refers:
+        n_refer = max(v.shape[1] for v in refers)
+        lr = max(v.shape[2] for v in refers)
+        blocks, cmasks = [], []
+        for r in reqs:
+            cm = np.zeros((r.batch_size, n_refer), np.int32)
+            if r.refer_latents is None:
+                blocks.append(np.zeros((r.batch_size, n_refer, lr, refers[0].shape[-1]),
+                                       np.float32))
+            else:
+                v = np.asarray(r.refer_latents, np.float32)
+                blocks.append(rows(r, np.pad(v, ((0, 0), (0, n_refer - v.shape[1]),
+                                                 (0, lr - v.shape[2]), (0, 0)))))
+                cm[:, :v.shape[1]] = 1
+            cmasks.append(cm)
+        out.refer_latents = np.concatenate(blocks, 0)
+        out.refer_mask = np.concatenate(cmasks, 0)
+    srcs = [r.src_latents for r in reqs if r.src_latents is not None]
+    if srcs:
+        t_frames = max(v.shape[1] for v in srcs)
+        blocks = []
+        for r in reqs:
+            if r.src_latents is None:
+                blocks.append(np.zeros((r.batch_size, t_frames, srcs[0].shape[-1]), np.float32))
+            else:
+                v = np.asarray(r.src_latents, np.float32)
+                blocks.append(rows(r, np.pad(v, ((0, 0), (0, t_frames - v.shape[1]), (0, 0)))))
+        out.src_latents = np.concatenate(blocks, 0)
     return out
 
 

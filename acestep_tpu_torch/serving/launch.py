@@ -7,7 +7,8 @@ files as ``loader.save_params`` writes them (``<name>.safetensors`` plus
 config; the flagship defaults where it is missing).  Quantized weights are
 served in the format they were saved in.  An LM planner adds ``lm`` parameter
 files, ``lm.config.json`` and the tokenizer's ``tokenizer.json`` (read with the
-``tokenizers`` package).
+``tokenizers`` package); the audio-code bridge adds ``codec`` parameter files
+(``models/codec``'s tree as ``loader.save_params`` writes it).
 """
 
 from __future__ import annotations
@@ -68,3 +69,15 @@ def build_lm(checkpoint: Optional[str], device=None, **knobs) -> Optional[LMPipe
     dev = resolve_device(device)
     return LMPipeline(loader.load_params(lm_dir, device=dev), cfg,
                       TokenizerJsonAdapter(tok_path), device=dev, **knobs)
+
+
+def build_codec(checkpoint: Optional[str], device=None):
+    """The codec bridge's parameters of ``checkpoint`` (``codec.safetensors`` and
+    ``codec.json``) on ``device`` (the card by default); None when the
+    checkpoint carries none, and the LM code hints then stay off."""
+    if not checkpoint:
+        return None
+    codec_dir = os.path.join(checkpoint, "codec")
+    if not os.path.exists(codec_dir + ".safetensors"):
+        return None
+    return loader.load_params(codec_dir, device=resolve_device(device))

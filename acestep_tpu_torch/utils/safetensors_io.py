@@ -52,11 +52,21 @@ class SafetensorsFile:
         self._data_offset = 8 + header_len
         self._mm = np.memmap(path, mode="r", dtype=np.uint8)
 
-    def tensor(self, name: str) -> np.ndarray:
+    def keys(self):
+        return self.header.keys()
+
+    def tensor(self, name: str, as_f32: bool = False) -> np.ndarray:
+        """The tensor's array (bf16 as raw bits); ``as_f32`` converts any
+        floating dtype, bf16 included, to float32."""
         e = self.header[name]
         start = self._data_offset + e["data_offsets"][0]
         end = self._data_offset + e["data_offsets"][1]
-        return np.frombuffer(self._mm[start:end], dtype=_DTYPES[e["dtype"]]).reshape(e["shape"])
+        arr = np.frombuffer(self._mm[start:end], dtype=_DTYPES[e["dtype"]]).reshape(e["shape"])
+        if not as_f32:
+            return arr
+        if e["dtype"] == "BF16":
+            return (arr.astype(np.uint32) << 16).view(np.float32)
+        return arr.astype(np.float32)
 
 
 def save_safetensors(path: str, tensors: Dict[str, np.ndarray],

@@ -89,14 +89,40 @@ Phases, each announced by a timestamped line:
                 before its end); the merged decode within the Q8_0 gate of its
                 latents decoded alone; two planted merge faults (a wrong valid
                 length, swapped condition rows) each rejected
- 14. checkpoint a small q4_k engine written with the port's save_params to a
+ 14. audio_in   phase long's q4_k engine: a 60 s source (a chord of sines plus
+                noise 20 dB down, default_rng(2)) and a 40 s reference
+                (default_rng(3)), 48 kHz stereo, made with numpy, encoded
+                (encode_src_audio [1, 1500, 64], encode_refer_audio
+                [1, 1, 750, 64], each timed twice); repaint 20-40 s, cover
+                with the reference at strength 0.5 (the switch after 4 steps)
+                and at 1.0, lego 10-30 s with a track name, and text2music with
+                the reference as timbre only, each at 60 s three times (a
+                warm-up, two timed, int16 equal): time_costs, peak device
+                memory, launches; (a) the repaint context's src channels are
+                the silence latents bit for bit inside the span and the encoded
+                source outside it, (b) the cover condition holds lyric + style
+                + clips valid tokens and its latents move without the
+                reference; each check's planted fault (the span not silenced,
+                the timbre token left out) rejected
+ 15. cfg        a full-width q8_0 engine serves the base model's CFG at 10 s
+                (guidance 7, 32 steps, shift 3, the neutral uncond), plain and
+                with ADG and the interval [0.1, 0.9], three times each (int16
+                of the timed pair equal); q8_0 launches by M (the 2B batch)
+ 16. output_audio a small engine whose encoder has the full width's 128- and
+                256-channel blocks, on the card against the same engine on
+                the CPU: encode_src_audio within 1e-4 of the peak, then
+                repaint, cover at 0.5 with timbre, lego with a span and CFG at
+                the Q8_0 gate on the waveform, CFG with SDE (the same draws
+                both sides) and CFG + ADG on the latents (card_vs_cpu_audio
+                says why)
+ 17. checkpoint a small q4_k engine written with the port's save_params to a
                 temporary directory, read back through
                 serving.launch.build_engine(dir) on the card: the same int16
                 output, exactly
- 15. recheck    every (kernel, shape) the served requests launched that phase 3
+ 18. recheck    every (kernel, shape) the served requests launched that phase 3
                 did not cover, against the plain version: configs[3]'s merged
                 batches and the merged-vs-solo runs too
- 16. check_lm   the LM decode kernels against their plain versions at the
+ 19. check_lm   the LM decode kernels against their plain versions at the
                 0.6B planner's full width (16 query / 8 kv heads, 28 layers of
                 int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
                 ragged, T = 1024 (one T block) and lengths on chunk and T-block
@@ -110,9 +136,9 @@ Phases, each announced by a timestamped line:
                 bit-identical with the occupancy grid (20 reruns of the B = 4,
                 28-layer case); then four planted faults in the plain version,
                 each of which one depth rejects
- 17. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
+ 20. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
                 quantized head, int8 KV), drawn on the card
- 18. lm_serve   configs[2]'s LM request through
+ 21. lm_serve   configs[2]'s LM request through
                 LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
                 100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
                 0.95): three times on the default path (megakernel), once with
@@ -121,23 +147,23 @@ Phases, each announced by a timestamped line:
                 int8_act on, once on the default path (the head through row 6)
                 and once with decode_mega=0 (every layer linear too);
                 time_costs and launches of every request
- 19. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 15,
-                and every (B, T) of row 11 not checked in phase 16, through
-                the LM's own 28 layers at phase 16's 28-layer bounds
- 20. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
+ 22. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 18,
+                and every (B, T) of row 11 not checked in phase 19, through
+                the LM's own 28 layers at phase 19's 28-layer bounds
+ 23. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
                 same LM on the CPU (plain versions), both fed the CPU's tokens:
                 logits of the first two steps within 2e-2 of the peak (4e-2
                 with int8 activations), the top token equal at every step whose
                 CPU top-1/top-2 gap is at least 2e-2 of the peak; on the
                 megakernel, and with int8_act on the layer scan
- 21. check_fsm  the constrained CoT on the small LM of phase 20 over a
+ 24. check_fsm  the constrained CoT on the small LM of phase 23 over a
                 4096-piece demo vocabulary (caption budget 24), user metadata
                 {} and {bpm 100, duration 120}: greedy device-DFA tokens
                 (serving.lm.generate_with_fsm_device) equal the greedy
                 host-FSM tokens on the card, replay valid and done through
                 MetadataFSM; the DFA without its caption budget and without
                 its exception table (planted faults) each rejected
- 22. full       configs[2] whole: a full-width q4_k engine and the 0.6B q8_0 LM
+ 25. full       configs[2] whole: a full-width q4_k engine and the 0.6B q8_0 LM
                 (int8 KV) through inference.generate_music with
                 tools/bench_full_pipeline.py's request (120 s, bpm 100, 64
                 style tokens of default_rng(0), 256 lyric tokens of
@@ -149,17 +175,21 @@ Phases, each announced by a timestamped line:
                 151,669-piece demo vocabulary, three times and once with
                 lm_num_candidates=4 (PMI ranking): the device DFA taken, the
                 CoT ids replay valid and done, bpm, keyscale, timesignature,
-                language, caption and genres parsed, duration 120 forced
- 23. recheck_full the kernel shapes those requests launched, as phase 19
+                language, caption and genres parsed, duration 120 forced;
+                then the plain request with a random codec (conv_v1): it
+                becomes a cover of the LM codes' hints [1, 3000, 64], and
+                understand_audio of the 60 s source (300 codes, 64 tokens)
+ 26. recheck_full the kernel shapes those requests launched, as phase 22
                 (row 11 at the +think CoT's and the candidates' cache lengths)
- 24. timing     kernel, plain-version and library-call times at the served
+ 27. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
                 CUDA-core bound logged beside), the
                 dequant-matmul shapes also as a CUDA graph (device time) with
                 their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
-                rows 4, 7 and 8 also per 600 s request;
+                rows 4, 7 and 8 also per 600 s request, rows 7 and 8 per
+                60 s source encoded;
                 the LM kernels at three valid lengths of the request, weighted
                 by its launches (rows 9 / 10 also as CUDA graphs beside SDPA;
                 row 11 with its stage split; row 6 at each shape also as CUDA
@@ -249,6 +279,18 @@ FLASH_REL = 2.0 ** -6
 # parts: that is held within 3 dB of what the decode explains
 MERGE_LAT_DB = 40.0
 MERGE_AUDIO_SLACK_DB = 3.0
+# the audio-in tasks (phase audio_in): a 60 s source and a 40 s reference,
+# made with numpy, at 48 kHz stereo
+AUDIO_SR = 48000
+SRC_S, REFER_S = 60.0, 40.0
+SRC_CHORD = (220.0, 277.18, 329.63)        # A major
+REFER_CHORD = (196.0, 246.94, 293.66)      # G major
+REPAINT_SPAN = (20.0, 40.0)
+LEGO_SPAN = (10.0, 30.0)
+COVER_STRENGTH = 0.5
+# the base model's CFG (phase cfg): 10 s, 32 steps, guidance 7, shift 3
+CFG_SCALE, CFG_STEPS = 7.0, 32
+UNDERSTAND_TOKENS = 64         # understand_audio's token budget in phase full
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -589,6 +631,247 @@ def free_engine() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the audio-in tasks
+# ---------------------------------------------------------------------------
+
+def chord_waveform(seconds: float, seed: int, freqs):
+    """A stereo 48 kHz chord of sines (random phases, the right channel 5 ms
+    behind) plus white noise 20 dB below the chord's power, f32 [L, 2]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * AUDIO_SR)) / AUDIO_SR
+    chord = sum(np.sin(2 * np.pi * f * t + ph)
+                for f, ph in zip(freqs, rng.uniform(0, 2 * np.pi, len(freqs))))
+    chord = 0.15 * np.stack([chord, np.roll(chord, AUDIO_SR // 200)], axis=1)
+    noise = rng.standard_normal(chord.shape) * np.sqrt(np.mean(chord ** 2) / 100.0)
+    return (chord + noise).astype(np.float32)
+
+
+def span_context_ok(ctx, src, sil, lo: int, hi: int) -> bool:
+    """Check (a), from the encoded source and the silence latents alone: in
+    frames [lo, hi) the context's src channels are the silence latents bit for
+    bit and its mask 1; elsewhere the source (zero past its end) and mask 0."""
+    import numpy as np
+
+    d = src.shape[-1]
+    want = np.zeros(ctx[..., :d].shape, np.float32)
+    want[:, :src.shape[1]] = src
+    want[:, lo:hi] = sil[:, lo:hi]
+    mask = np.zeros(ctx.shape[1], np.float32)
+    mask[lo:hi] = 1.0
+    return bool(np.array_equal(ctx[..., :d], want) and (ctx[..., d:] == mask[None, :, None]).all())
+
+
+def serve_peak(engine, req, label, need, length):
+    """``serve`` of three requests (a warm-up and two timed) with the peak
+    device memory over them; the timed pair's int16 equal."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, counts = serve(engine, req, label, 3, need)
+    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(np.array_equal(results[1].audio_i16, results[2].audio_i16),
+            f"two runs of {label} differ")
+    check_audio(results, length)
+    return results, counts
+
+
+def serve_audio_in(engine, style, lyric, src_wave, refer_wave, path, vae_cfg):
+    """Phase audio_in on a full-width engine: the 60 s source and the 40 s
+    reference encoded, then repaint, cover at 0.5 and 1.0, lego with a span
+    and text2music with the reference as timbre, each three times at 60 s;
+    the span and timbre checks with their planted faults.  Returns (source
+    latents, {key: (launches, shapes)})."""
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import pipeline
+
+    served = {}
+    for key, label, fn, want in (
+            ("encode 60s", f"encode_src_audio ({SRC_S:g} s)",
+             lambda: engine.encode_src_audio(src_wave), (1, 1500, 64)),
+            ("encode refer", f"encode_refer_audio ({REFER_S:g} s, cut to 30 s)",
+             lambda: engine.encode_refer_audio([refer_wave]), (1, 1, 750, 64))):
+        secs = []
+        for _ in range(2):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()                   # numpy: the device work is done
+            secs.append(time.perf_counter() - t)
+            served[key] = snapshot_counts()
+        require(out.shape == want and np.isfinite(out).all(), f"{label}: {out.shape}")
+        log(f"{label}: {out.shape}, s (first, second) {secs[0]:.4f}, {secs[1]:.4f}; launches "
+            + json.dumps({k: v for k, v in served[key][0].items() if v}))
+        if key == "encode 60s":
+            src = out
+        else:
+            refer = out
+    frames = pipeline.frames_for_duration(SRC_S)
+    base = pipeline.GenerationRequest(duration_s=SRC_S, style_token_ids=style,
+                                      lyric_token_ids=lyric, seeds=[1], src_latents=src)
+    reqs = {
+        "repaint": dict(task="repaint", repaint_start_s=REPAINT_SPAN[0],
+                        repaint_end_s=REPAINT_SPAN[1]),
+        "cover 0.5": dict(task="cover", refer_latents=refer,
+                          audio_cover_strength=COVER_STRENGTH),
+        "cover 1.0": dict(task="cover", refer_latents=refer, audio_cover_strength=1.0),
+        "lego": dict(task="lego", repaint_start_s=LEGO_SPAN[0], repaint_end_s=LEGO_SPAN[1],
+                     track_name="guitar"),
+        "timbre": dict(task="text2music", src_latents=None, refer_latents=refer),
+    }
+    results = {}
+    for key, kw in reqs.items():
+        label = f"{SRC_S:g} s {key}"
+        results[key], served[label] = serve_peak(engine, dataclasses.replace(base, **kw), label,
+                                                 path, frames * vae_cfg.hop_length)
+    # (a) the repaint span, from the source and the silence latents alone
+    t = pipeline.bucket_frames(frames)
+    rep = dataclasses.replace(base, **reqs["repaint"])
+    ctx = engine.build_context_latents(rep, 1, t, frames).cpu().numpy()
+    sil = engine._silence_frames(t).cpu().numpy()
+    lo, hi = (int(s * 25) for s in REPAINT_SPAN)
+    ok = span_context_ok(ctx, src, sil, lo, hi)
+    faulty = ctx.copy()
+    faulty[:, lo:hi, :src.shape[-1]] = src[:, lo:hi]        # planted: the span not silenced
+    caught = not span_context_ok(faulty, src, sil, lo, hi)
+    log(f"repaint context: frames [{lo}, {hi}) silence bit for bit and mask 1, the source "
+        f"elsewhere: {ok}; planted fault (span not silenced) {'rejected' if caught else 'NOT rejected'}")
+    require(ok and caught, "the repaint span check failed or missed its planted fault")
+    # (b) the cover condition holds the timbre token
+    cov = dataclasses.replace(base, **reqs["cover 0.5"])
+    want = lyric.shape[1] + style.shape[1] + refer.shape[1]
+    n_valid = int(engine.build_condition(cov, 1)[1].sum())
+    n_fault = int(engine.build_condition(dataclasses.replace(cov, refer_latents=None), 1)[1].sum())
+    no_ref = engine.generate(dataclasses.replace(cov, refer_latents=None))
+    moved = float(np.abs(no_ref.latents - results["cover 0.5"][-1].latents).max())
+    log(f"cover condition: {n_valid} valid tokens ({want} = lyric + style + clips); planted fault "
+        f"(timbre token left out): {n_fault}, {'rejected' if n_fault != want else 'NOT rejected'}; "
+        f"latents without the reference part by up to {moved:.4f}")
+    require(n_valid == want and n_fault != want and moved > 1e-3,
+            "the cover condition check failed or missed its planted fault")
+    return src, served
+
+
+def scaled_kernels(tree, s: float):
+    """Every 2-D linear kernel times ``s`` (a q8_0 weight through its f32
+    scales: exact for a power of two), as the CPU parity tests scale their
+    tiny models (tests/test_torch_models.py::_scale_kernels)."""
+    from acestep_tpu_torch.quant import QuantTensor
+
+    if isinstance(tree, list):
+        return [scaled_kernels(v, s) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "kernel" and isinstance(v, QuantTensor):
+            v = QuantTensor(v.fmt, v.shape, **{f: a * s if f == "scales" else a
+                                               for f, a in v.fields().items()})
+        elif k == "kernel":
+            v = v * s
+        out[k] = scaled_kernels(v, s)
+    return out
+
+
+def card_vs_cpu_audio(src_wave, refer_wave, small_dit, small_text, need):
+    """Phase output_audio: a small engine whose encoder has the full width's
+    first blocks (128 and 256 channels, so rows 7-8 encode) on the card
+    against the same engine on the CPU (plain versions): the encode of the
+    same waveform within rows 7-8's 1e-4 f32 bound, then at 10 s on the CPU's
+    source and reference latents, the same noise and draws on both sides:
+    repaint, cover at 0.5 with timbre, lego with a span and CFG (the neutral
+    uncond) at the Q8_0 gate on the waveform; CFG with SDE and CFG with ADG
+    (a 5-token uncond) at the gate on the latents.
+
+    Measured on the H100 (PERF.md, PR 16): the random small decoder magnifies
+    a latent difference the more the larger the latents are (turbo latents
+    scaled x4 go from 47 dB to 25 dB of waveform).  CFG with SDE agrees to
+    45.7 dB in its latents and 26.7 dB (cosine 0.99893) in its waveform.  ADG
+    runs with the DiT's kernels scaled x2: at init scale the condition moves
+    this random model's velocity by 5% (|v_c - v_u| / |v_c| 0.054), a delta
+    that ADG renormalises to |v_c|, so the bf16 rounding of both velocities
+    grows ~19-fold (latents 24-28 dB); scaled x2 the latents agree to 36 dB,
+    and guided latents 3x the turbo ones leave 19 dB of waveform."""
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import pipeline, weights
+    from acestep_tpu_torch.config import VAEConfig
+
+    vae_cfg = VAEConfig(encoder_hidden_size=128, decoder_channels=128, decoder_input_channels=64,
+                        downsampling_ratios=(2, 2, 2), channel_multiples=(1, 2, 4))
+    dit_cfg = dataclasses.replace(small_dit, in_channels=192, audio_acoustic_hidden_dim=64,
+                                  timbre_hidden_dim=64, num_timbre_encoder_hidden_layers=1)
+    cpu = pipeline.build_random_engine(device="cpu", quant="q8_0", seed=3, dit_cfg=dit_cfg,
+                                       vae_cfg=vae_cfg, text_cfg=small_text)
+    gpu = pipeline.AceStepEngine(
+        weights.tree_to(cpu.dit_params, "cuda"), dit_cfg, weights.tree_to(cpu.vae_params, "cuda"),
+        vae_cfg, weights.tree_to(cpu.text_params, "cuda"), small_text, device="cuda")
+    hop = vae_cfg.hop_length
+    wave = src_wave[:250 * hop]          # 250 frames: 10 s of latents at this VAE's hop
+    src = cpu.encode_src_audio(wave)
+    before = snapshot_counts()[0]
+    got = gpu.encode_src_audio(wave)
+    after = snapshot_counts()[0]
+    err = float(np.abs(got - src).max() / np.abs(src).max())
+    log(f"small encoder (128 / 256 channels), card vs CPU: encode_src_audio {got.shape}, max "
+        f"err / peak {err:.2e} (<= {RES_TOL:g})")
+    require(got.shape == src.shape == (1, 250, 64) and err <= RES_TOL
+            and all(after[n] > before[n] for n in need[1:]),
+            "the small encoder's card output disagrees with the CPU's, or missed rows 7-8")
+    refer = cpu.encode_refer_audio([refer_wave[:100 * hop]])
+    rng = np.random.default_rng(1)
+    req = pipeline.GenerationRequest(
+        duration_s=10.0, style_token_ids=rng.integers(0, 512, (1, 20)),
+        lyric_token_ids=rng.integers(0, 512, (1, 40)), seeds=[2], src_latents=src)
+    uncond = rng.integers(0, 512, (1, 5))
+    noise = torch.randn((1, 256, 64), generator=torch.Generator().manual_seed(5))
+    scaled = pipeline.AceStepEngine(scaled_kernels(cpu.dit_params, 2.0), dit_cfg,
+                                    cpu.vae_params, vae_cfg, cpu.text_params, small_text,
+                                    device="cpu")
+    pairs = {1.0: (cpu, gpu), 2.0: (scaled, pipeline.AceStepEngine(
+        weights.tree_to(scaled.dit_params, "cuda"), dit_cfg, gpu.vae_params, vae_cfg,
+        gpu.text_params, small_text, device="cuda"))}
+    cfg = dict(src_latents=None, guidance_scale=5.0, infer_steps=8)
+    # (name, request fields, kernel scale, what the gate holds)
+    cases = (("repaint", dict(task="repaint", repaint_start_s=2.0, repaint_end_s=6.0), 1.0,
+              "audio"),
+             ("cover 0.5 with timbre", dict(task="cover", refer_latents=refer,
+                                            audio_cover_strength=COVER_STRENGTH), 1.0, "audio"),
+             ("lego with span", dict(task="lego", repaint_start_s=3.0, repaint_end_s=7.0,
+                                     track_name="bass"), 1.0, "audio"),
+             ("CFG (ODE)", cfg, 1.0, "audio"),
+             ("CFG (SDE)", dict(cfg, infer_method="sde", uncond_style_token_ids=uncond), 1.0,
+              "latents"),
+             ("CFG + ADG (ODE)", dict(cfg, use_adg=True, uncond_style_token_ids=uncond), 2.0,
+              "latents"))
+    for name, kw, scale, held in cases:
+        r = dataclasses.replace(req, **kw)
+        on_cpu, on_gpu = pairs[scale]
+        draws = {}
+        if r.infer_method == "sde":
+            draws["sde_noise"] = torch.randn((8, 1, 256, 64),
+                                             generator=torch.Generator().manual_seed(6))
+        before = snapshot_counts()[0]
+        ref = on_cpu.generate(r, noise=noise, **draws)
+        out = on_gpu.generate(r, noise=noise, **draws)
+        after = snapshot_counts()[0]
+        require(all(after[n] > before[n] for n in need),
+                f"small engine {name} on the card missed a kernel of {need}")
+        lat, aud = gate(ref.latents, out.latents), gate(ref.audio, out.audio)
+        cos, snr = lat if held == "latents" else aud
+        log(f"small engine {name} (kernels x{scale:g}), card (kernels) vs CPU (plain): latents "
+            f"cosine {lat[0]:.6f}, SNR {lat[1]:.2f} dB; audio cosine {aud[0]:.6f}, SNR "
+            f"{aud[1]:.2f} dB; the gate on the {held} (cosine >= 0.999, SNR >= 26)")
+        require(cos >= 0.999 and snr >= 26.0, f"card and CPU disagree on the small engine's {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1887,8 +2170,36 @@ def run() -> int:
     phase("batch")
     served.update(serve_configs3(engine, path_long))
     served["configs[3] merged vs solo"] = merged_vs_solo(engine)
+
+    phase("audio_in")
+    src_wave = chord_waveform(SRC_S, 2, SRC_CHORD)
+    refer_wave = chord_waveform(REFER_S, 3, REFER_CHORD)
+    src60, audio_served = serve_audio_in(engine, style, lyric, src_wave, refer_wave, path_long,
+                                         vae_cfg)
+    served.update(audio_served)
     del engine
     free_engine()
+
+    phase("cfg")
+    engine = pipeline.build_random_engine(device="cuda", quant="q8_0", seed=0)
+    req_cfg = pipeline.GenerationRequest(duration_s=10.0, style_token_ids=style,
+                                         lyric_token_ids=lyric, seeds=[1],
+                                         guidance_scale=CFG_SCALE, infer_steps=CFG_STEPS,
+                                         shift=3.0)
+    for key, kw in (("cfg", {}), ("cfg adg", dict(use_adg=True, cfg_interval_start=0.1,
+                                                   cfg_interval_end=0.9))):
+        label = f"10 s base-model CFG {CFG_SCALE:g}, {CFG_STEPS} steps" + (
+            ", ADG, interval [0.1, 0.9]" if kw else "")
+        results[key], served[key] = serve_peak(engine, dataclasses.replace(req_cfg, **kw), label,
+                                               path10, 480000)
+        log(f"{label}: q8_0_qmm launches by M (the 2B batch's decoder at M 256): " + json.dumps(
+            {str(m): sum(v for (mm, _, _), v in served[key][1][names['q8_0']].items() if mm == m)
+             for m in sorted({sh[0] for sh in served[key][1][names['q8_0']]})}))
+    del engine
+    free_engine()
+
+    phase("output_audio")
+    card_vs_cpu_audio(src_wave, refer_wave, small_dit, small_text, [names["q8_0"], unit, trio])
 
     phase("checkpoint")
     src = pipeline.build_random_engine(device="cuda", quant="q4_k", seed=4,
@@ -2126,12 +2437,12 @@ def run() -> int:
     n_full = pipeline.frames_for_duration(LM_DURATION_S) * vae_cfg.hop_length
     full_runs = {}
 
-    def full_request(lm, key, label, **kw):
+    def full_request(lm, key, label, codec_params=None, **kw):
         params = inference.GenerationParams(
             caption=LM_CAPTION, lyrics=LM_LYRICS, duration=LM_DURATION_S,
             style_token_ids=full_style, lyric_token_ids=full_lyric, **kw)
         reset_counts()
-        res = inference.generate_music(engine, lm, params)
+        res = inference.generate_music(engine, lm, params, codec_params=codec_params)
         counts, shapes = snapshot_counts()
         log(f"{label}: time_costs " + json.dumps({k: round(v, 6)
                                                   for k, v in res.time_costs.items()}))
@@ -2151,6 +2462,44 @@ def run() -> int:
                      f"({'warm-up' if i == 0 else 'timed'})", bpm=100, thinking=False)
     require(np.array_equal(full_runs["plain 1"][0].pcm16(), full_runs["plain 2"][0].pcm16()),
             "two runs of the configs[2] request differ")
+    # the LM's codes as 25 Hz hints through a random codec: the request becomes
+    # a cover of them (the engine's request is caught on its way in)
+    from acestep_tpu_torch.models import codec
+
+    codec_params = codec.init_arch_params("conv_v1", seed=0, device="cuda")
+    caught = {}
+
+    def catch(req, **kw):
+        caught["req"] = req
+        return pipeline.AceStepEngine.generate(engine, req, **kw)
+
+    engine.generate = catch
+    res = full_request(pipe, "hints", "configs[2] generate_music with LM code hints", bpm=100,
+                       thinking=False, codec_params=codec_params)
+    del engine.generate
+    hreq, n_hint = caught["req"], pipeline.frames_for_duration(LM_DURATION_S)
+    # recomputed: cuDNN may take another f32 conv algorithm, so within 1e-5 of the peak
+    hints = codec.codes_to_latents(codec_params, res.lm_result.code_indices, n_hint).cpu().numpy()
+    hint_err = float(np.abs(hreq.src_latents - hints).max() / np.abs(hints).max())
+    require(hreq.task == "cover" and hreq.src_latents.shape == (1, n_hint, 64)
+            and hint_err <= 1e-5, f"code hints: task {hreq.task}, src "
+            f"{getattr(hreq.src_latents, 'shape', None)}, max err / peak {hint_err:.2e}")
+    log(f"code hints: the request became a {hreq.task} of hints {hreq.src_latents.shape}, "
+        f"codes_to_latents of its 600 codes (recomputed: max err / peak {hint_err:.2e})")
+    # understand_audio: the 60 s source -> 300 codes -> the understanding flow
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    und = inference.understand_audio(engine, pipe, codec_params, src_wave, temperature=0.0,
+                                     max_tokens=UNDERSTAND_TOKENS)
+    und_s = time.perf_counter() - t
+    counts, shapes = snapshot_counts()
+    full_runs["understand"] = (None, counts, shapes)
+    log(f"understand_audio ({SRC_S:g} s source, {UNDERSTAND_TOKENS} tokens at most): {und_s:.4f} s;"
+        f" launches " + json.dumps({k: v for k, v in counts.items() if v})
+        + f"; {mega_name} by (B, T) " + json.dumps({str(k): v for k, v in shapes[mega_name].items()}))
+    require(counts[mega_name] > 0 and counts[trio] > 0 and "raw_output" in und,
+            "understand_audio missed the encoder or the decode megakernel")
     # +think: the constrained CoT on the device DFA over the full demo vocabulary
     vocab_full = build_demo_vocab(QWEN3_0_6B.vocab_size)
     think = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, DemoVocabTokenizer(vocab_full),
@@ -2308,6 +2657,9 @@ def run() -> int:
         timed(name, "60s q4_0")
     for name in (names["q4_k"], unit, trio):
         timed(name, "600s q4_k")
+    # the encoder's share of rows 7-8: one 60 s source (24 windows)
+    for name in (unit, trio):
+        timed(name, "encode 60s")
     # the q8_0 kernel on the shapes the LM requests launched (prefill, codes head,
     # layer-scan linears), weighted by their launches
     for key in ("default 2", "pallas"):

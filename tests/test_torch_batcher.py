@@ -77,6 +77,60 @@ def test_shape_keys_group_as_jax():
         tbatcher.merge_requests([pairs[0][1], dataclasses.replace(pairs[0][1], shift=2.0)])
 
 
+KEY_VARIANTS = [dict(audio_cover_strength=0.5), dict(repaint_start_s=2.0),
+                dict(repaint_end_s=8.0), dict(guidance_scale=7.0), dict(infer_steps=32),
+                dict(use_adg=True), dict(cfg_interval_start=0.1), dict(cfg_interval_end=0.9),
+                dict(track_name="drums"), dict(complete_track_classes=["bass"]),
+                dict(task="cover")]
+
+
+@pytest.mark.parametrize("variant", range(len(KEY_VARIANTS)))
+def test_merge_key_separates_task_fields_as_jax(variant):
+    """A request that differs in one strength, span, CFG or track field does
+    not merge, in either package."""
+    ja, ta = _pair(10.0)
+    kw = KEY_VARIANTS[variant]
+    jb, tb = dataclasses.replace(ja, **kw), dataclasses.replace(ta, **kw)
+    assert jbatcher._merge_key(ja) != jbatcher._merge_key(jb)
+    assert tbatcher._merge_key(ta) != tbatcher._merge_key(tb)
+    assert tbatcher._merge_key(tb) == tbatcher._merge_key(dataclasses.replace(ta, **kw))
+    with pytest.raises(ValueError, match="incompatible"):
+        tbatcher.merge_requests([ta, tb])
+
+
+def _audio_pair(dur, seed, n_refer, lr, src_frames, batch=1):
+    rng = np.random.default_rng(seed)
+    kw = dict(duration_s=dur, style_token_ids=rng.integers(0, 100, (1, 6)), seeds=[seed],
+              batch_size=batch, task="cover")
+    if n_refer:
+        kw["refer_latents"] = rng.standard_normal((1, n_refer, lr, 64)).astype(np.float32)
+        kw["refer_mask"] = np.ones((1, n_refer), np.int32)
+    if src_frames:
+        kw["src_latents"] = rng.standard_normal((1, src_frames, 64)).astype(np.float32)
+    return jpipeline.GenerationRequest(**kw), tpipeline.GenerationRequest(**kw)
+
+
+@pytest.mark.parametrize("specs", [
+    [(10.0, 0, 1, 200, 250), (20.0, 1, 2, 750, 500, 2)],
+    [(30.0, 2, 0, 0, 750), (10.0, 3, 1, 100, 250)],
+])
+def test_merge_requests_audio_inputs_match_jax(specs):
+    """Reference latents padded to the most clips and frames with each
+    request's clips in the clip mask (zeros for a request without any);
+    source latents zero-padded to the longest (batch 2 repeats its row); the
+    shape key counts the clips."""
+    pairs = [_audio_pair(*spec) for spec in specs]
+    ref = jbatcher.merge_requests([j for j, _ in pairs])
+    got = tbatcher.merge_requests([t for _, t in pairs])
+    for f in ("refer_latents", "refer_mask", "src_latents"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))
+    assert got.refer_latents.shape[0] == got.src_latents.shape[0] == got.batch_size
+    keys = [tbatcher._shape_key(t) for _, t in pairs]
+    jkeys = [jbatcher._shape_key(j) for j, _ in pairs]
+    assert (keys[0] == keys[1]) == (jkeys[0] == jkeys[1]) is False
+    assert [k[-1] for k in keys] == [k[-1] for k in jkeys] == [s[2] for s in specs]
+
+
 def test_split_result_matches_jax():
     rng = np.random.default_rng(0)
     i16 = rng.integers(-3000, 3000, (3, 100, 2)).astype(np.int16)

@@ -211,14 +211,27 @@ def test_lm_only_flows_equal(stacks, xla_qmm):
     assert tlp.build_sample_prompt("q", "x") == jlp.build_sample_prompt("q", "x")
 
 
-def test_cover_and_codec_raise(stacks):
-    _, teng, _, tlm = stacks
-    for kw, extra in ((dict(task_type="cover"), {}), (dict(task_type="repaint"), {}),
-                      (dict(src_latents=np.zeros((1, 250, DIM), np.float32)), {}),
-                      (dict(refer_latents=np.zeros((1, 1, 50, DIM), np.float32)), {}),
-                      ({}, dict(codec_params={"w": 0}))):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tinf.generate_music(teng, tlm, _params(tinf, thinking=False, **kw), **extra)
+def test_cover_and_codec_raise(stacks, xla_qmm):
+    """Every task, source and reference latents and codec parameters now run
+    (their parity: tests/test_torch_{audio_tasks,codec,timbre}.py); without a
+    source, cover and repaint give text2music's output bit for bit, and an
+    unknown task is text2music, as in the JAX engine.  What raises is what the
+    JAX package raises on: a codec tree without its weights (KeyError)."""
+    jeng, teng, jlm, tlm = stacks
+    noise = _jax_noise(1, 10.0)
+    kw = dict(thinking=False, use_cot_metas=False)
+    plain = tinf.generate_music(teng, tlm, _params(tinf, **kw), noise=noise)
+    for task in ("cover", "repaint", "karaoke"):
+        res = tinf.generate_music(teng, tlm, _params(tinf, task_type=task, **kw), noise=noise)
+        np.testing.assert_array_equal(res.pcm16(), plain.pcm16())
+    for extra in (dict(task_type="cover", src_latents=np.zeros((1, 250, DIM), np.float32)),
+                  dict(refer_latents=np.zeros((1, 1, 50, DIM), np.float32))):
+        res = tinf.generate_music(teng, tlm, _params(tinf, **kw, **extra), noise=noise)
+        assert np.isfinite(res.audio).all() and res.pcm16().shape == plain.pcm16().shape
+    for mod, eng, lm in ((jinf, jeng, jlm), (tinf, teng, tlm)):
+        with pytest.raises(KeyError):
+            mod.generate_music(eng, lm, _params(mod, thinking=False, bpm=100),
+                               codec_params={"w": 0})
     assert tinf.GenerationParams().lm_constrained_cot is True
 
 
