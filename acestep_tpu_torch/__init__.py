@@ -5,7 +5,9 @@ The JAX package ``acestep_tpu`` beside it is the reference; this package
 imports nothing from it and never imports JAX.  It covers text2music at
 batch 1 with q8_0, q4_0, q4_k or q6_k weights: Qwen3 text encoder -> 8-step
 turbo DiT -> Oobleck VAE decode to int16, from random weights or a converted
-checkpoint directory (``serving.launch.build_engine``).  Its hot ops are
+checkpoint directory (``serving.launch.build_engine``), behind the JAX
+package's REST and OpenRouter servers (``python -m
+acestep_tpu_torch.serving.launch api|openrouter``).  Its hot ops are
 hand-written CUDA C++ kernels for sm_90a (``csrc/*.cu``), built with plain
 ``nvcc`` calls (one per source, in parallel) and loaded with ctypes:
 

@@ -61,3 +61,16 @@ def iter_layers(layers):
     else:
         for li in range(num_layers(layers)):
             yield layer_view(layers, li)
+
+
+def unstack_layer_params(stacked):
+    """Inverse of :func:`stack_layer_params`: one dict with a leading layer
+    axis -> a list of per-layer dicts (views, no copy), the layout a
+    checkpoint's ``layers`` and a LoRA adapter have."""
+
+    def index(t, li):
+        if isinstance(t, dict):
+            return {k: index(v, li) for k, v in t.items()}
+        return t.layer(li) if isinstance(t, QuantTensor) else t[li]
+
+    return [index(stacked, li) for li in range(num_layers(stacked))]

@@ -436,6 +436,53 @@ class AceStepEngine:
             out[0, i, :c.shape[0]] = c
         return out
 
+    def lyric_attention_map(self, latents, req: GenerationRequest,
+                            eps: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, int]:
+        """The alignment probe of generated ``latents`` [B, T_valid, 64] under
+        ``req``'s condition (pipeline.py:940-1003): the latents zero-padded to
+        their frame bucket, ``build_condition`` and ``build_context_latents``,
+        then ``alignment.cross_attention_maps`` (``eps`` of the padded shape,
+        seeded by default).  Returns (item 0's map [Tp, Lc] f32, the lyric
+        token count)."""
+        from acestep_tpu_torch import alignment
+
+        if req.lyric_token_ids is None:
+            raise ValueError("request has no lyric tokens to align")
+        lat = self._tensor(latents)
+        b, t_valid = lat.shape[0], lat.shape[1]
+        t = bucket_frames(t_valid)
+        if t != t_valid:
+            lat = torch.nn.functional.pad(lat, (0, 0, 0, t - t_valid))
+        enc, enc_mask = self.build_condition(req, b)
+        ctx = self.build_context_latents(req, b, t, t_valid)
+        maps = alignment.cross_attention_maps(self.dit_params, self.dit_cfg, lat, ctx, enc,
+                                              enc_mask, eps=eps)
+        n_lyric = (int(np.asarray(req.lyric_mask).sum(axis=1)[0]) if req.lyric_mask is not None
+                   else int(np.asarray(req.lyric_token_ids).shape[1]))
+        return maps[0].cpu().numpy(), n_lyric
+
+    def get_lyric_timestamps(self, latents, req: GenerationRequest,
+                             lyric_lines: Optional[Sequence[str]] = None,
+                             line_token_counts: Optional[Sequence[int]] = None,
+                             eps: Optional[torch.Tensor] = None):
+        """Each lyric token's time (s) in the generated ``latents``, from the
+        probe and DTW: (stamps [n_lyric], the LRC text or None)."""
+        from acestep_tpu_torch import alignment
+
+        attn, n_lyric = self.lyric_attention_map(latents, req, eps)
+        stamps = alignment.token_timestamps(attn, n_lyric, self.dit_cfg.patch_size / LATENT_RATE)
+        lrc = None
+        if lyric_lines is not None and line_token_counts is not None:
+            lrc = alignment.to_lrc(lyric_lines, line_token_counts, stamps)
+        return stamps, lrc
+
+    def get_lyric_score(self, latents, req: GenerationRequest,
+                        eps: Optional[torch.Tensor] = None) -> float:
+        """Lyric-alignment quality score (on-path attention mass ratio)."""
+        from acestep_tpu_torch import alignment
+
+        return alignment.alignment_score(*self.lyric_attention_map(latents, req, eps))
+
     def cover_switch(self, req: GenerationRequest, b: int, t: int, t_valid: int,
                      n_steps: int, enc, enc_mask) -> Dict[str, object]:
         """The cover task's switch (pipeline.py:588-614) as ``sample_latents``

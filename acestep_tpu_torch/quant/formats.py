@@ -186,6 +186,15 @@ def _signed_absmax(blocks: torch.Tensor) -> torch.Tensor:
     return torch.gather(blocks, 1, idx)[:, 0, :]
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded as one IEEE division wherever ``x`` lies.  PyTorch's
+    CUDA kernel turns a division by a Python number into a multiplication by
+    its reciprocal, which rounds differently (x / 127 and x * (1 / 127) part
+    in the last bit); a divisor tensor on x's device keeps the true division
+    of the CPU and of numpy."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     """1/d where d != 0, else 0."""
     return torch.where(d != 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
@@ -197,7 +206,7 @@ def quantize_q8_0(w: torch.Tensor) -> QuantTensor:
     w = _kernel_f32(w, BLOCK, "q8_0")
     k, n = w.shape
     blocks = w.reshape(k // BLOCK, BLOCK, n)
-    d = blocks.abs().amax(dim=1) / 127.0                     # [K/32, N]
+    d = _div(blocks.abs().amax(dim=1), 127.0)                # [K/32, N]
     inv = torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30), torch.zeros_like(d))
     q = _roundf(blocks * inv[:, None, :]).clamp(-127, 127).to(torch.int8)
     return QuantTensor("q8_0", (k, n), q.reshape(k, n), d.to(torch.float16))
@@ -208,7 +217,7 @@ def quantize_q4_0(w: torch.Tensor) -> QuantTensor:
     w = _kernel_f32(w, FOLD, "q4_0")
     k, n = w.shape
     blocks = w.reshape(k // BLOCK, BLOCK, n)
-    d = _signed_absmax(blocks) / -8.0
+    d = _div(_signed_absmax(blocks), -8.0)
     q = torch.floor(blocks * _safe_inv(d)[:, None, :] + 8.5).clamp(0.0, 15.0)
     return QuantTensor("q4_0", (k, n), pack_nibbles(q.to(torch.uint8).reshape(k, n)),
                        d.to(torch.float16))
@@ -222,10 +231,10 @@ def quantize_q4_k(w: torch.Tensor) -> QuantTensor:
     nb, ns, sub = k // BLOCK, k // SUPER, SUPER // BLOCK
     blocks = w.reshape(nb, BLOCK, n)
     mn = torch.clamp(blocks.amin(dim=1), max=0.0)
-    d_b = (blocks.amax(dim=1) - mn) / 15.0
+    d_b = _div(blocks.amax(dim=1) - mn, 15.0)
     min_b = -mn
-    d_sup = d_b.reshape(ns, sub, n).amax(dim=1) / 63.0
-    m_sup = min_b.reshape(ns, sub, n).amax(dim=1) / 63.0
+    d_sup = _div(d_b.reshape(ns, sub, n).amax(dim=1), 63.0)
+    m_sup = _div(min_b.reshape(ns, sub, n).amax(dim=1), 63.0)
     d_rep = torch.repeat_interleave(d_sup, sub, dim=0)
     m_rep = torch.repeat_interleave(m_sup, sub, dim=0)
     zero = torch.zeros_like(d_b)
@@ -250,8 +259,8 @@ def quantize_q6_k(w: torch.Tensor) -> QuantTensor:
     k, n = w.shape
     nb, ns, sub = k // SUB16, k // SUPER, SUPER // SUB16
     blocks = w.reshape(nb, SUB16, n)
-    d_b = _signed_absmax(blocks) / -32.0
-    d_sup = d_b.abs().reshape(ns, sub, n).amax(dim=1) / 127.0
+    d_b = _div(_signed_absmax(blocks), -32.0)
+    d_sup = _div(d_b.abs().reshape(ns, sub, n).amax(dim=1), 127.0)
     d_rep = torch.repeat_interleave(d_sup, sub, dim=0)
     ls = torch.where(d_rep > 0, _roundf(d_b / torch.clamp(d_rep, min=1e-30)),
                      torch.zeros_like(d_b)).clamp(-127, 127).to(torch.int8)

@@ -24,7 +24,7 @@ import logging
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -199,6 +199,19 @@ class ContinuousBatcher:
             "batches": 0, "requests": 0,
             "merged_sizes": collections.deque(maxlen=MERGED_SIZES_WINDOW),
             "padded_items": 0,
+        }
+
+    def stats_summary(self) -> Dict[str, Any]:
+        """Merge-rate stats for the REST server's /v1/stats."""
+        sizes = list(self.stats["merged_sizes"])  # rolling window, not history
+        return {
+            "requests": self.stats["requests"],
+            "batches": self.stats["batches"],
+            "avg_merged_batch": round(sum(sizes) / len(sizes), 2) if sizes else 0.0,
+            "max_merged_batch": max(sizes) if sizes else 0,
+            "merge_window": MERGED_SIZES_WINDOW,
+            "padded_items": self.stats["padded_items"],
+            "queued": sum(len(q) for q in self._queues.values()),
         }
 
     def start(self):

@@ -179,9 +179,35 @@ Phases, each announced by a timestamped line:
                 then the plain request with a random codec (conv_v1): it
                 becomes a cover of the LM codes' hints [1, 3000, 64], and
                 understand_audio of the 60 s source (300 codes, 64 tokens)
- 26. recheck_full the kernel shapes those requests launched, as phase 22
-                (row 11 at the +think CoT's and the candidates' cache lengths)
- 27. timing     kernel, plain-version and library-call times at the served
+ 26. server     phase full's engine (its DiT tree kept unstacked) saved with
+                loader.save_params and read back through
+                serving.launch.build_engine; the REST server (ApiServer,
+                make_generate_fn, the byte tokenizer, LoRARuntime) on
+                127.0.0.1, port 0: (a) 30 s text2music with lyrics, return_lrc,
+                FLAC out; (b) 60 s repaint 20-40 s of the audio_in source
+                uploaded as WAV; (c) a cover at 0.5 of it with the reference
+                uploaded as FLAC; (d) 10 s MP3 out where libmp3lame loads; each
+                through /release_task and /query_result, its payload bytes
+                equal to those of engine.generate on the request the server
+                built (caught on its way in), the upload's latents within 1e-5
+                of the peak of an encode of the decoded upload, the LRC, stamps
+                and score equal to a direct probe; /v1/lyrics, /health,
+                /v1/stats and /studio; a second server with
+                make_full_generate_fn and phase full's LM: configs[2]'s song
+                equal to generate_music bit for bit; the OpenRouter server:
+                one chat completion with a metadata block, its WAV equal to the
+                direct request's int16 through read_wav -> write_wav; LoRA: a
+                random rank-16 adapter registered, activated, scaled to 0.5
+                (the audio moves each time) and deactivated (the base's int16
+                bit for bit), the card's merge of two q4_k kernels equal to the
+                CPU's; the alignment probe on phase output_audio's small engine
+                card vs CPU within 1.5x the drift of its plain version on the
+                card, never below 2e-3; wall s via HTTP against the direct
+                call, upload decode, FLAC encode, probe and LoRA seconds
+ 27. recheck_full the kernel shapes those requests launched, as phase 22
+                (row 11 at the +think CoT's and the candidates' cache
+                lengths), and those of the served jobs
+ 28. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
@@ -203,6 +229,7 @@ Without a card, or outside the repository, it exits non-zero and prints no resul
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -291,6 +318,11 @@ COVER_STRENGTH = 0.5
 # the base model's CFG (phase cfg): 10 s, 32 steps, guidance 7, shift 3
 CFG_SCALE, CFG_STEPS = 7.0, 32
 UNDERSTAND_TOKENS = 64         # understand_audio's token budget in phase full
+# the servers (phase server): request (a) 30 s, (b) and (c) 60 s; a rank-16 LoRA
+SERVER_A_S, SERVER_B_S = 30.0, 60.0
+LORA_RANK = 16
+PROBE_ATOL = 2e-3              # tests/test_torch_alignment.py: the probe against the JAX package
+POLL_S = 0.05                  # a client's /query_result period (and 0.002 once, to show contention)
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -781,6 +813,19 @@ def scaled_kernels(tree, s: float):
     return out
 
 
+def audio_small_cfgs(small_dit):
+    """(DiT, VAE) configs of phase output_audio's small engine: the encoder
+    with the full width's first blocks (128 and 256 channels) and 64 latent
+    channels."""
+    from acestep_tpu_torch.config import VAEConfig
+
+    vae_cfg = VAEConfig(encoder_hidden_size=128, decoder_channels=128, decoder_input_channels=64,
+                        downsampling_ratios=(2, 2, 2), channel_multiples=(1, 2, 4))
+    dit_cfg = dataclasses.replace(small_dit, in_channels=192, audio_acoustic_hidden_dim=64,
+                                  timbre_hidden_dim=64, num_timbre_encoder_hidden_layers=1)
+    return dit_cfg, vae_cfg
+
+
 def card_vs_cpu_audio(src_wave, refer_wave, small_dit, small_text, need):
     """Phase output_audio: a small engine whose encoder has the full width's
     first blocks (128 and 256 channels, so rows 7-8 encode) on the card
@@ -804,12 +849,8 @@ def card_vs_cpu_audio(src_wave, refer_wave, small_dit, small_text, need):
     import torch
 
     from acestep_tpu_torch import pipeline, weights
-    from acestep_tpu_torch.config import VAEConfig
 
-    vae_cfg = VAEConfig(encoder_hidden_size=128, decoder_channels=128, decoder_input_channels=64,
-                        downsampling_ratios=(2, 2, 2), channel_multiples=(1, 2, 4))
-    dit_cfg = dataclasses.replace(small_dit, in_channels=192, audio_acoustic_hidden_dim=64,
-                                  timbre_hidden_dim=64, num_timbre_encoder_hidden_layers=1)
+    dit_cfg, vae_cfg = audio_small_cfgs(small_dit)
     cpu = pipeline.build_random_engine(device="cpu", quant="q8_0", seed=3, dit_cfg=dit_cfg,
                                        vae_cfg=vae_cfg, text_cfg=small_text)
     gpu = pipeline.AceStepEngine(
@@ -1895,6 +1936,448 @@ def lm_request(pipe, label, need, kw):
 
 
 # ---------------------------------------------------------------------------
+# the servers (phase server)
+# ---------------------------------------------------------------------------
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def http(port, path, body=None, raw=False):
+    """One request to a server on this host: (status, JSON or raw bytes)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = r.read()
+            return r.status, (out if raw else json.loads(out))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_job(port, payload, label, poll_s=POLL_S):
+    """A job through /release_task, polled on /query_result until it ends:
+    (result, wall seconds from submit to the completed poll, task id, the
+    kernel counts reset just before the job and read just after it).  A poll
+    every ``poll_s``: each one is a request the server's threads answer while
+    the engine's host-paced launches run, so a tighter loop slows the job."""
+    reset_counts()
+    t = time.perf_counter()
+    code, sub = http(port, "/release_task", payload)
+    require(code == 200, f"{label}: /release_task answered {code}")
+    while True:
+        _, out = http(port, "/query_result", {"task_id": sub["task_id"]})
+        if out["status"] in ("completed", "failed"):
+            break
+        time.sleep(poll_s)
+    wall = time.perf_counter() - t
+    counts = snapshot_counts()
+    require(out["status"] == "completed", f"{label}: job failed: {out['error']}")
+    return out["result"], wall, sub["task_id"], counts
+
+
+class CaughtEngine:
+    """Records every request ``engine.generate`` is handed (and its result),
+    so a served job can be replayed through the engine directly."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def __enter__(self):
+        from acestep_tpu_torch import pipeline
+
+        def catch(req, **kw):
+            res = pipeline.AceStepEngine.generate(self.engine, req, **kw)
+            self.calls.append((req, res))
+            return res
+
+        self.engine.generate = catch
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.generate
+
+    def direct(self):
+        """The last caught request through ``AceStepEngine.generate`` again:
+        (result, seconds)."""
+        from acestep_tpu_torch import pipeline
+
+        req = self.calls[-1][0]
+        sync()
+        t = time.perf_counter()
+        res = pipeline.AceStepEngine.generate(self.engine, req)
+        return res, time.perf_counter() - t
+
+
+def lora_adapter(base, seed, dev):
+    """A rank-16 adapter (b non-zero) on every attention / MLP kernel of the
+    unstacked DiT tree ``base``, as the JAX package's ``init_lora`` targets
+    them, drawn on ``dev``."""
+    import re
+
+    import torch
+    from acestep_tpu_torch.quant import QuantTensor
+
+    targets = re.compile(r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)/kernel$")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            out = {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+            return {k: v for k, v in out.items() if v is not None} or None
+        if isinstance(t, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(t)]
+        if targets.search(path) and (isinstance(t, QuantTensor) or t.dim() == 2):
+            k, n = t.shape
+            return {"a": torch.randn((k, LORA_RANK), generator=g, device=dev) / LORA_RANK,
+                    "b": torch.randn((LORA_RANK, n), generator=g, device=dev) * 0.02}
+        return None
+
+    return walk(base, "")
+
+
+@contextlib.contextmanager
+def plain_qmm():
+    """The dequant-matmul's plain version for CUDA tensors too, inside the
+    block (the alignment probe's drift measure, as check_mega's plain runs)."""
+    from acestep_tpu_torch.ops.cuda import qmm
+
+    real = qmm.qmm
+
+    def plain(x, qt, bias=None, out_dtype=None, li=None):
+        return qmm.qmm_plain(x, qt if li is None else qt.layer(li), bias, out_dtype)
+
+    qmm.qmm = plain
+    try:
+        yield
+    finally:
+        qmm.qmm = real
+
+
+def probe_card_vs_cpu(dit_cfg, vae_cfg, text_cfg, need, dev="cuda"):
+    """The alignment probe on a small engine (phase output_audio's configs) on
+    the card (kernels) against the same engine on the CPU (plain versions),
+    30 s of random latents, the same eps: the kernel run held to DRIFT_FACTOR
+    times the drift of the plain version on the card against the CPU, never
+    tighter than PROBE_ATOL (the probe's parity bound against the JAX
+    package, tests/test_torch_alignment.py).  Returns (error, bound)."""
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import alignment, pipeline, weights
+
+    cpu = pipeline.build_random_engine(device="cpu", quant="q8_0", seed=3, dit_cfg=dit_cfg,
+                                       vae_cfg=vae_cfg, text_cfg=text_cfg)
+    gpu = pipeline.AceStepEngine(
+        weights.tree_to(cpu.dit_params, dev), dit_cfg, weights.tree_to(cpu.vae_params, dev),
+        vae_cfg, weights.tree_to(cpu.text_params, dev), text_cfg, device=dev)
+    rng = np.random.default_rng(8)
+    t_valid = pipeline.frames_for_duration(SERVER_A_S)
+    lat = rng.standard_normal((1, t_valid, dit_cfg.audio_acoustic_hidden_dim)).astype(np.float32)
+    req = pipeline.GenerationRequest(duration_s=SERVER_A_S, seeds=[1],
+                                     style_token_ids=rng.integers(0, 512, (1, 20)),
+                                     lyric_token_ids=rng.integers(0, 512, (1, 40)))
+    eps = torch.randn((1, pipeline.bucket_frames(t_valid), dit_cfg.audio_acoustic_hidden_dim),
+                      generator=torch.Generator().manual_seed(7))
+    ref, n = cpu.lyric_attention_map(lat, req, eps)
+    with plain_qmm():
+        plain, _ = gpu.lyric_attention_map(lat, req, eps)
+    before = snapshot_counts()[0]
+    got, _ = gpu.lyric_attention_map(lat, req, eps)
+    again, _ = gpu.lyric_attention_map(lat, req, eps)
+    after = snapshot_counts()[0]
+    require(all(after[k] > before[k] for k in need), f"the small probe on the card missed {need}")
+    drift, err = float(np.abs(plain - ref).max()), float(np.abs(got - ref).max())
+    bound = max(DRIFT_FACTOR * drift, PROBE_ATOL)
+    s_ref, s_got = alignment.alignment_score(ref, n), alignment.alignment_score(got, n)
+    log(f"alignment probe, small engine ({dit_cfg.hidden_size} wide, {dit_cfg.num_hidden_layers} "
+        f"layers, q8_0, 30 s): card (kernels) vs CPU (plain) maps max abs err {err:.3e}; drift of "
+        f"the plain version card vs CPU {drift:.3e}; bound {bound:.3e} (1.5x the drift, never "
+        f"below {PROBE_ATOL:g}); score {s_got:.6f} vs {s_ref:.6f}; rerun bit-identical "
+        f"{bool(np.array_equal(got, again))}")
+    require(err <= bound and np.isfinite(got).all(), "the probe's card maps disagree with the CPU")
+    require(np.array_equal(got, again), "two probe runs on the card differ")
+    return err, bound
+
+
+def serve_http(engine, dit_tree, pipe, src_wave, refer_wave, names, mega_name, small_cfgs):
+    """Phase server: phase full's engine saved as a checkpoint and read back
+    through ``serving.launch.build_engine``, then the REST server (engine
+    alone, and the whole pipeline with the LM), the OpenRouter server and the
+    LoRA routes over HTTP, each job held bit for bit against the engine
+    called directly on the request the server built.  Returns {label:
+    (launches, shapes)} of the served jobs."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import inference, loader, pipeline, weights
+    from acestep_tpu_torch.lora_runtime import LoRARuntime
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+    from acestep_tpu_torch.serving import launch
+    from acestep_tpu_torch.serving.api_server import ApiServer
+    from acestep_tpu_torch.serving.openrouter_server import OpenRouterServer
+    from acestep_tpu_torch.training.lora import apply_lora
+    from acestep_tpu_torch.utils import audio as audio_io
+    from acestep_tpu_torch.utils import flac, mp3
+
+    t_phase = time.perf_counter()
+    served, secs = {}, {}
+    sr = AUDIO_SR
+    work = tempfile.TemporaryDirectory(prefix="acestep_server_")
+    os.environ["ACESTEP_TPU_PROGRESS_CACHE"] = os.path.join(work.name, "progress_eta.json")
+    # the checkpoint: the DiT as a checkpoint holds it (unstacked layers)
+    t = time.perf_counter()
+    ckpt = os.path.join(work.name, "ckpt")
+    os.makedirs(ckpt)
+    tree = dict(dit_tree, layers=unstack_layer_params(dit_tree["layers"]))
+    for name, params, cfg in (("dit", tree, engine.dit_cfg), ("vae", engine.vae_params,
+                                                              engine.vae_cfg),
+                              ("text_encoder", engine.text_params, engine.text_cfg)):
+        loader.save_params(os.path.join(ckpt, name), params)
+        with open(os.path.join(ckpt, f"{name}.config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+    secs["checkpoint save"] = time.perf_counter() - t
+    size = sum(os.path.getsize(os.path.join(ckpt, p)) for p in os.listdir(ckpt))
+    del tree
+    t = time.perf_counter()
+    engine, base = launch.build_engine(ckpt, device=engine.device)
+    sync()
+    secs["checkpoint read"] = time.perf_counter() - t
+    log(f"full-width q4_k checkpoint ({size / 2**30:.2f} GiB) saved in "
+        f"{secs['checkpoint save']:.2f} s, read back through build_engine in "
+        f"{secs['checkpoint read']:.2f} s; the unstacked DiT tree has "
+        f"{len(base['layers'])} layers")
+
+    # the server's own upload decoding, timed where it runs
+    decoded, real_decode = [], launch._decode_audio_payload
+
+    def timed_decode(b64, fmt=""):
+        t = time.perf_counter()
+        out = real_decode(b64, fmt)
+        decoded.append((out.shape[0] / sr, time.perf_counter() - t))
+        return out
+
+    launch._decode_audio_payload = timed_decode
+    tok = ByteTokenizer()
+    gen = launch.make_generate_fn(engine, tok)
+    lora_rt = LoRARuntime(engine, base)
+    api = ApiServer(gen, lora_runtime=lora_rt, api_key="")
+    port = api.start("127.0.0.1", 0)
+    full = ApiServer(launch.make_full_generate_fn(engine, pipe), api_key="")
+    port_full = full.start("127.0.0.1", 0)
+    orouter = OpenRouterServer(launch.openrouter_generate_fn(gen))
+    port_or = orouter.start("127.0.0.1", 0)
+    jobs = []                              # (label, wall s via HTTP, direct generate s)
+
+    def held(label, job, caught, fmt):
+        """The served audio against the caught request's direct run, bit for bit
+        in the payload's own format."""
+        result, wall, _, (counts, shapes) = job
+        direct, direct_s = caught.direct()
+        segs = [s[0] for s in direct.pcm16_segments()]
+        pcm = np.concatenate(segs, axis=0)
+        t = time.perf_counter()
+        want = {"wav": lambda: audio_io.wav_bytes(segs, sr),
+                "flac": lambda: flac.encode_flac(pcm, sr),
+                "mp3": lambda: mp3.encode_mp3(pcm, sr)}[fmt]()
+        secs[f"{fmt} encode ({label})"] = time.perf_counter() - t
+        got = base64.b64decode(result["audio_base64"])
+        require(result["audio_format"] == fmt and got == want,
+                f"{label}: the served {fmt} differs from engine.generate on its request")
+        served[f"server {label}"] = (counts, shapes)
+        jobs.append((label, wall, direct_s))
+        log(f"{label}: via HTTP {wall:.4f} s, engine.generate on the caught request "
+            f"{direct_s:.4f} s; {fmt} ({len(got)} bytes) bit for bit equal; launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+        return direct
+
+    with CaughtEngine(engine) as caught:
+        # (a) text2music, 30 s, lyrics, LRC, FLAC out
+        pay_a = {"caption": LM_CAPTION, "lyrics": LM_LYRICS, "duration": SERVER_A_S,
+                 "seed": 1, "return_lrc": True, "audio_format": "flac"}
+        job = http_job(port, pay_a, "request (a)")
+        res_a, tid_a = job[0], job[2]
+        direct_a = held("(a) 30 s text2music, return_lrc, FLAC", job, caught, "flac")
+        req_a = caught.calls[-1][0]
+        lines = [ln for ln in LM_LYRICS.split("\n") if ln.strip()]
+        n_ids = int(req_a.lyric_token_ids.shape[1])
+        per = max(1, n_ids // len(lines))
+        counts = [per] * (len(lines) - 1) + [n_ids - per * (len(lines) - 1)]
+        sync()
+        t = time.perf_counter()
+        stamps, lrc = engine.get_lyric_timestamps(direct_a.latents, req_a, lines, counts)
+        score = engine.get_lyric_score(direct_a.latents, req_a)
+        secs["alignment probe x2 (30 s)"] = time.perf_counter() - t
+        require(lrc == res_a["lrc"] and [round(float(s), 3) for s in stamps]
+                == res_a["lyric_timestamps"] and float(score) == res_a["lyric_score"],
+                "(a): the served LRC / stamps / score differ from the direct probe")
+        log(f"(a) lyric alignment at full width: score {res_a['lyric_score']:.6f}; LRC "
+            + json.dumps(res_a["lrc"].split("\n")))
+        code, lyr = http(port, "/v1/lyrics", {"task_id": tid_a})
+        require(code == 200 and lyr["lrc"] == res_a["lrc"], f"/v1/lyrics answered {code}")
+
+        # (b) repaint 20-40 s of the 60 s chord source, uploaded as WAV
+        wav_src = base64.b64encode(audio_io.wav_bytes(src_wave, sr)).decode()
+        pay_b = {"caption": LM_CAPTION, "lyrics": LM_LYRICS, "duration": SERVER_B_S, "seed": 1,
+                 "task_type": "repaint", "src_audio_base64": wav_src,
+                 "repaint_start": REPAINT_SPAN[0], "repaint_end": REPAINT_SPAN[1]}
+        held("(b) 60 s repaint 20-40 s, WAV upload", http_job(port, pay_b, "request (b)"),
+             caught, "wav")
+        req_b = caught.calls[-1][0]
+        secs["upload decode (60 s WAV, in the server)"] = decoded[-1][1]
+        src_lat = engine.encode_src_audio(real_decode(wav_src))
+        enc_err = float(np.abs(src_lat - req_b.src_latents).max() / np.abs(src_lat).max())
+        log(f"(b) the server's src latents {req_b.src_latents.shape} against encode_src_audio "
+            f"of the decoded upload: max err / peak {enc_err:.2e} (bit for bit "
+            f"{bool(np.array_equal(src_lat, req_b.src_latents))}; held to 1e-5)")
+        require(req_b.task == "repaint" and enc_err <= 1e-5, "(b): the upload's latents differ")
+
+        # (c) cover at 0.5 of the source, the reference uploaded as FLAC
+        t = time.perf_counter()
+        flac_ref = base64.b64encode(flac.encode_flac(refer_wave, sr)).decode()
+        secs["flac encode (40 s reference)"] = time.perf_counter() - t
+        pay_c = dict(pay_b, task_type="cover", audio_cover_strength=COVER_STRENGTH,
+                     refer_audio_base64=flac_ref)
+        del pay_c["repaint_start"], pay_c["repaint_end"]
+        held("(c) 60 s cover 0.5, FLAC reference", http_job(port, pay_c, "request (c)"),
+             caught, "wav")
+        req_c = caught.calls[-1][0]
+        secs["upload decode (60 s WAV and 40 s FLAC, in the server)"] = [
+            round(s, 4) for _, s in decoded[-2:]]
+        require(req_c.task == "cover" and req_c.refer_latents.shape == (1, 1, 750, 64),
+                f"(c): task {req_c.task}, refer {getattr(req_c.refer_latents, 'shape', None)}")
+
+        # (d) MP3 out where the host has libmp3lame
+        log(f"libmp3lame {'found' if mp3.encoder_available() else 'absent'}, libmpg123 "
+            f"{'found' if mp3.decoder_available() else 'absent'} on this host")
+        if mp3.encoder_available():
+            held("(d) 10 s MP3", http_job(port, {"caption": LM_CAPTION, "duration": 10.0,
+                                                 "seed": 2, "audio_format": "mp3"},
+                                          "request (d)"), caught, "mp3")
+
+        code, health = http(port, "/health")
+        code_st, page = http(port, "/studio", raw=True)
+        with open(os.path.join(os.path.dirname(os.path.abspath(pipeline.__file__)), "ui",
+                               "studio.html"), "rb") as f:
+            studio = f.read()
+        code_s, stats = http(port, "/v1/stats")
+        require(code == 200 and code_st == 200 and page == studio and code_s == 200
+                and stats["completed"] >= 3, "/health, /studio or /v1/stats answered wrong")
+        log(f"/health ok, /studio {len(page)} bytes (the port's page), /v1/stats: completed "
+            f"{stats['completed']}, failed {stats['failed']}, job_wall "
+            + json.dumps({k: round(v, 4) for k, v in stats["latency"]["job_wall"].items()}))
+
+        # the whole pipeline: configs[2]'s song through the LM
+        pay_f = {"caption": LM_CAPTION, "lyrics": LM_LYRICS, "duration": LM_DURATION_S,
+                 "bpm": 100, "thinking": False, "seed": 0}
+        res_f, wall, _, (counts_f, shapes_f) = http_job(port_full, pay_f, "full-pipeline request")
+        res_f2, wall2, _, _ = http_job(port_full, pay_f, "full-pipeline request, tight poll",
+                                       poll_s=0.002)
+        params, config = launch.build_params(engine, pay_f, pipe.tok)
+        sync()
+        t = time.perf_counter()
+        direct_f = inference.generate_music(engine, pipe, params, config)
+        direct_s = time.perf_counter() - t
+        want = audio_io.wav_bytes([s[0] for s in direct_f.dit_result.pcm16_segments()], sr)
+        require(base64.b64decode(res_f["audio_base64"]) == want
+                and res_f2["audio_base64"] == res_f["audio_base64"],
+                "the full pipeline's served WAV differs from generate_music")
+        require(counts_f[mega_name] > 0, f"the full-pipeline job did not run {mega_name}")
+        served["server full pipeline"] = (counts_f, shapes_f)
+        jobs.append(("configs[2] song, whole pipeline", wall, direct_s))
+        jobs.append(("configs[2] song, polled every 0.002 s", wall2, direct_s))
+        log(f"configs[2] song via HTTP (make_full_generate_fn): {wall:.4f} s polled every "
+            f"{POLL_S} s, {wall2:.4f} s polled every 0.002 s, generate_music {direct_s:.4f} s; "
+            f"WAV bit for bit equal; metadata {json.dumps(res_f['metadata'])}; "
+            f"launches " + json.dumps({k: v for k, v in counts_f.items() if v}))
+
+        # the OpenRouter server, a fenced metadata block
+        msgs = [{"role": "user", "content": f"{LM_CAPTION}\nbpm: 100\nduration: 10\n{LM_LYRICS}"}]
+        reset_counts()
+        t = time.perf_counter()
+        code, out = http(port_or, "/v1/chat/completions", {"messages": msgs})
+        wall = time.perf_counter() - t
+        served["server openrouter"] = snapshot_counts()
+        require(code == 200, f"/v1/chat/completions answered {code}")
+        direct, direct_s = caught.direct()
+        chain = audio_io.wav_bytes(audio_io.read_wav_bytes(audio_io.wav_bytes(
+            [s[0] for s in direct.pcm16_segments()], sr))[0], sr)
+        got = base64.b64decode(out["choices"][0]["message"]["audio"]["data"])
+        require(got == chain and caught.calls[-1][0].duration_s == 10.0,
+                "the OpenRouter WAV differs from the direct request's after read_wav -> write_wav")
+        jobs.append(("OpenRouter chat completion, 10 s", wall, direct_s))
+        log(f"OpenRouter /v1/chat/completions (10 s): {wall:.4f} s, direct {direct_s:.4f} s; WAV "
+            f"equal after read_wav -> write_wav; content {out['choices'][0]['message']['content']}")
+
+        # LoRA through /v1/lora: register, activate, scale 0.5, deactivate
+        pay_l = {"caption": LM_CAPTION, "lyrics": LM_LYRICS, "duration": 10.0, "seed": 3}
+        base_res = http_job(port, pay_l, "LoRA base")[0]
+        adapter = lora_adapter(base, 21, engine.device)
+        loader.save_params(os.path.join(work.name, "adapter"), adapter)
+        code, _ = http(port, "/v1/lora", {"action": "register", "name": "rand16", "alpha": 16.0,
+                                          "path": os.path.join(work.name, "adapter")})
+        require(code == 200, f"/v1/lora register answered {code}")
+        runs = {}
+        for action, body in (("activate", {}), ("scale", {"scale": 0.5}), ("deactivate", {})):
+            sync()
+            t = time.perf_counter()
+            code, out = http(port, "/v1/lora", dict(body, action=action, name="rand16"))
+            secs[f"LoRA {action}"] = time.perf_counter() - t
+            require(code == 200, f"/v1/lora {action} answered {code}: {out}")
+            runs[action], _, _, served[f"server LoRA {action}"] = http_job(port, pay_l,
+                                                                        f"LoRA {action}")
+        a0, a1, a2, a3 = (base64.b64decode(r["audio_base64"])
+                          for r in (base_res, runs["activate"], runs["scale"], runs["deactivate"]))
+        require(a1 != a0 and a2 != a1 and a2 != a0, "LoRA activate / scale left the audio as it was")
+        require(a3 == a0, "LoRA deactivate did not restore the base's int16 bit for bit")
+        log(f"LoRA rank {LORA_RANK} on every attention / MLP kernel: activate "
+            f"{secs['LoRA activate']:.3f} s, scale 0.5 {secs['LoRA scale']:.3f} s, deactivate "
+            f"{secs['LoRA deactivate']:.3f} s (each a merge of the whole DiT on the card and the "
+            f"engine's layout rebuilt); the audio moved with activate and with scale, and "
+            f"deactivate restored the base's int16 bit for bit")
+    # the card's merge against the CPU's: two of layer 0's q4_k kernels
+    sub = {"layers": [{"self_attn": {"q_proj": base["layers"][0]["self_attn"]["q_proj"]},
+                       "mlp": {"down_proj": base["layers"][0]["mlp"]["down_proj"]}}]}
+    sub_ad = {"layers": [{"self_attn": {"q_proj": adapter["layers"][0]["self_attn"]["q_proj"]},
+                          "mlp": {"down_proj": adapter["layers"][0]["mlp"]["down_proj"]}}]}
+    on_card = apply_lora(sub, sub_ad, alpha=16.0)
+    t = time.perf_counter()
+    on_cpu = apply_lora(weights.tree_to(sub, "cpu"), weights.tree_to(sub_ad, "cpu"), alpha=16.0)
+    cpu_s = time.perf_counter() - t
+    same = []
+    for group, name in (("self_attn", "q_proj"), ("mlp", "down_proj")):
+        c, w = on_card["layers"][0][group][name]["kernel"], on_cpu["layers"][0][group][name]["kernel"]
+        same.append(c.fmt == w.fmt == "q4_k" and all(
+            torch.equal(getattr(c, f).cpu(), a) for f, a in w.fields().items()))
+    log(f"LoRA merge of layer 0's q4_k q_proj and down_proj: the card's fields equal the CPU's "
+        f"bit for bit: {same} (CPU merge {cpu_s:.2f} s)")
+    require(all(same), "the card's LoRA merge differs from the CPU's")
+    for s in (api, full, orouter):
+        s.stop()
+    launch._decode_audio_payload = real_decode
+    work.cleanup()
+
+    probe_card_vs_cpu(*small_cfgs, [names["q8_0"]], engine.device)
+    log("server path, wall s via HTTP against engine.generate on the caught request (the "
+        "server's own cost is the difference): " + json.dumps(
+            {label: [round(w, 4), round(d, 4), round(w - d, 4)] for label, w, d in jobs}))
+    log("server path seconds: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
+    log(f"phase server took {time.perf_counter() - t_phase:.1f} s")
+    del engine, base, lora_rt
+    return served
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -2215,7 +2698,7 @@ def run() -> int:
                 json.dump(dataclasses.asdict(cfg), f)
         size = sum(os.path.getsize(os.path.join(ckpt, p)) for p in os.listdir(ckpt))
         launches_before = qmm.KERNELS["q4_k"].launches
-        loaded = launch.build_engine(ckpt, device="cuda")
+        loaded, _ = launch.build_engine(ckpt, device="cuda")
         after = loaded.generate(small_req)
     require(qmm.KERNELS["q4_k"].launches > launches_before,
             "the loaded engine did not run the q4_k kernel")
@@ -2426,7 +2909,15 @@ def run() -> int:
     phase("full")
     free_engine()
     t = time.perf_counter()
-    engine = pipeline.build_random_engine(device="cuda", quant="q4_k", seed=0)
+    # build_random_engine's draws, with the DiT tree (stacked, unfused) kept
+    # for phase server's checkpoint
+    from acestep_tpu_torch.models.random_init import RandomInit
+
+    init = RandomInit(torch.device("cuda"), 0, "q4_k")
+    dit_tree = init.dit(dit_cfg)
+    engine = pipeline.AceStepEngine(dit_tree, dit_cfg, init.vae(vae_cfg), vae_cfg,
+                                    init.qwen(text_cfg), text_cfg, device="cuda")
+    del init
     torch.cuda.synchronize()
     log(f"full-width q4_k engine built on the card in {time.perf_counter() - t:.1f} s; with "
         f"the 0.6B LM, device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2545,12 +3036,19 @@ def run() -> int:
     log(f"greedy device-DFA CoT, {len(stop[1][0][1])} tokens, s by how often the done flag is "
         "read: " + json.dumps({f"every {n} steps": [round(t, 4) for t, _ in runs]
                                for n, runs in stop.items()}))
-    del engine, think
+    del think
+
+    phase("server")
+    served_http = serve_http(engine, dit_tree, pipe, src_wave, refer_wave, names, mega_name,
+                             audio_small_cfgs(small_dit) + (small_text,))
+    del engine, dit_tree
     free_engine()
 
     phase("recheck_full")
     for key, (_, _, shapes) in full_runs.items():
         recheck_shapes(shapes, 98, lm_check)
+    for key, (_, shapes) in served_http.items():
+        recheck_shapes(shapes, 97, lm_check)
 
     phase("timing")
     import torch.nn.functional as F

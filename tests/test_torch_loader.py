@@ -110,10 +110,13 @@ def test_build_engine_serves_a_checkpoint_directory(tmp_path):
         jloader.save_params(os.path.join(ckpt, name), params)
         with open(os.path.join(ckpt, f"{name}.config.json"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f)
-    eng = launch.build_engine(ckpt, device="cpu")
+    eng, dit_tree = launch.build_engine(ckpt, device="cpu")
     assert (eng.dit_cfg, eng.vae_cfg, eng.text_cfg) == \
         (port_cfg(Q4_DIT), port_cfg(SLICE_VAE), port_cfg(Q4_TEXT))
     assert eng.dit_params["layers"]["mlp"]["gateup_proj"]["kernel"].fmt == "q4_k"
+    # the checkpoint's own unstacked tree comes back beside the engine
+    assert isinstance(dit_tree["layers"], list) and len(dit_tree["layers"]) == Q4_DIT.num_hidden_layers
+    assert dit_tree["layers"][0]["mlp"]["gate_proj"]["kernel"].fmt == "q4_k"
     noise = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (1, 256, Q4_DIT.audio_acoustic_hidden_dim)).astype(np.float32))
     got = eng.generate(request(GenerationRequest), noise=noise)

@@ -147,7 +147,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/scoring.py", "acestep_tpu_torch/inference.py",
                    "acestep_tpu_torch/serving/launch.py", "acestep_tpu_torch/models/codec.py",
                    "acestep_tpu_torch/training/dataset_builder.py",
-                   "tests/test_torch_cuda_encode.py"):
+                   "tests/test_torch_cuda_encode.py", "acestep_tpu_torch/alignment.py",
+                   "acestep_tpu_torch/lora_runtime.py", "acestep_tpu_torch/progress.py",
+                   "acestep_tpu_torch/training/lora.py", "acestep_tpu_torch/utils/audio.py",
+                   "acestep_tpu_torch/utils/flac.py", "acestep_tpu_torch/utils/mp3.py",
+                   "acestep_tpu_torch/serving/api_server.py",
+                   "acestep_tpu_torch/serving/openrouter_server.py",
+                   "tests/test_torch_cuda_serving.py"):
         assert module in names, module
     for path in files:
         for name in _imports(path):
