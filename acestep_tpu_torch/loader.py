@@ -20,19 +20,7 @@ import torch
 
 from acestep_tpu_torch.quant import QuantTensor
 from acestep_tpu_torch.utils.safetensors_io import SafetensorsFile, save_safetensors
-
-
-def _flatten(tree: Any, path: str = "") -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{path}/{k}" if path else k))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{path}/{i}"))
-    else:
-        out[path] = tree
-    return out
+from acestep_tpu_torch.weights import flatten
 
 
 def _to_numpy(t: torch.Tensor):
@@ -56,7 +44,7 @@ def save_params(path: str, params: Any) -> None:
     tensors: Dict[str, np.ndarray] = {}
     dtype_map: Dict[str, str] = {}
     leaves: Dict[str, Any] = {}
-    for name, leaf in _flatten(params).items():
+    for name, leaf in flatten(params).items():
         if leaf is None:
             continue
         if isinstance(leaf, QuantTensor):

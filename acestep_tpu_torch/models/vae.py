@@ -25,6 +25,13 @@ The tiled decode (vae.py:484-700) groups its overlap-discard windows by (size,
 trims), stacks each group's (window, item) rows window-major and decodes at
 most ``max_window_batch`` rows a call; ``fused_decode_windows_int16`` decodes
 one segment of a segmented decode at its own scale.
+
+``encode``, ``encode_and_sample``, ``decode`` and ``tiled_encode`` are
+differentiable, as the JAX functions are: with grad on and an input or
+parameter that requires it, autograd runs through the convs and through the
+res kernels' ``KernelGrad`` (ops/cuda/vae_resunit.py).  The engine's callers
+run them under ``torch.no_grad()`` on parameters that require no grad, so
+serving builds no graph; the int16 decodes are never differentiable.
 """
 
 from __future__ import annotations
@@ -120,14 +127,12 @@ def _encoder(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tenso
     return conv1d(x, p["conv2"]["w"], p["conv2"].get("b"), padding=1)
 
 
-@torch.no_grad()
 def encode(params: Params, cfg: VAEConfig, audio: torch.Tensor) -> torch.Tensor:
     """audio [B, L, 2] -> posterior MEAN latents [B, L//hop, 64]."""
     x = _encoder(params, cfg, audio)
     return x[..., : x.shape[-1] // 2].float()
 
 
-@torch.no_grad()
 def encode_and_sample(params: Params, cfg: VAEConfig, audio: torch.Tensor,
                       draw: torch.Tensor) -> torch.Tensor:
     """A draw z ~ posterior: ``mean + std * draw`` with the softplus std
@@ -141,7 +146,6 @@ def encode_and_sample(params: Params, cfg: VAEConfig, audio: torch.Tensor,
     return mean + std * draw.to(mean.device, torch.float32)
 
 
-@torch.no_grad()
 def decode(params: Params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
     """latents [B, T, 64] -> audio [B, T*hop, 2]."""
     p = params["decoder"]
@@ -252,7 +256,6 @@ def fused_tiled_decode_int16(
     return _to_int16(_decode_window_groups(params, cfg, latents, windows, max_window_batch))
 
 
-@torch.no_grad()
 def tiled_encode(params: Params, cfg: VAEConfig, audio: torch.Tensor,
                  chunk_frames: int = 64, overlap_frames: int = 16) -> torch.Tensor:
     """Chunked encode (latent-frame-aligned windows, overlap-discard)."""

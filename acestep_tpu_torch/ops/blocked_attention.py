@@ -133,7 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.matmul(qg, k[:, :, None, blk].float().transpose(-1, -2)).mul_(scale)
         s = s.add_(bias[:, None, None, None, blk])
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s.sub_(m_new))
+        # in place unless autograd needs s (amax's backward reads it)
+        p = torch.exp(s - m_new if s.requires_grad else s.sub_(m_new))
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(dtype).float(), v[:, :, None, blk].float())

@@ -26,7 +26,9 @@ tensors (snake alpha/beta exponentiated here, as the JAX wrapper does), once per
 parameter dict and keep them while its tensors live.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``UNIT`` / ``TRIO`` (``_build.Counted``) count launches, and by
+raises.  With grad on and a tensor that requires it, the kernel runs inside
+:class:`KernelGrad`, whose backward is the plain version's autograd (the JAX
+package's backward is XLA, not Pallas).  ``UNIT`` / ``TRIO`` (``_build.Counted``) count launches, and by
 ``(N, L, C[, dilation])``; the single-pass TF32 builds (``launch_*_tf32``, a
 planted fault for the checks and an ablation for the timing tool) count none.
 """
@@ -127,7 +129,7 @@ def _make(per_unit, device, stacked: bool) -> Operands:
     """Operands of the units' ``unit_tensors``: stacked copies (no reference to
     the param tensors, so the cache entry can go with them), the plain ones
     without the leading axis for a unit."""
-    stack = tuple(torch.stack([t[i] for t in per_unit]) for i in range(8))
+    stack = tuple(torch.stack([t[i].detach() for t in per_unit]) for i in range(8))
     plain = stack if stacked else tuple(t[0] for t in stack)
     if torch.device(device).type != "cuda":
         return Operands(plain, None, None)
@@ -258,8 +260,60 @@ def launch_trio_tf32(x: torch.Tensor, ops: Operands) -> torch.Tensor:
     return _trio("acestep_vae_res_trio_tf32", x, ops)
 
 
+class KernelGrad(torch.autograd.Function):
+    """A res kernel with a gradient: the forward is ``launch(x)`` (the CUDA
+    kernel), the backward recomputes ``plain(x, *tensors)`` under grad and
+    returns that graph's vector-Jacobian product for x and every tensor, as
+    the JAX wrapper's ``custom_vjp`` recomputes through its XLA copy of the
+    kernel's arithmetic (vae_resunit.py:145-187, :347-356).  ``tensors`` are
+    the plain version's operands (``unit_tensors``, stacked for a trio); their
+    gradients flow on to the param dict through ``unit_tensors``' casts and
+    exponentials."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, x, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(x, *tensors)
+        return launch(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip([x, *tensors], need)]
+            out = ctx.plain(*ins)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True)
+                         if wanted else ())
+        out_grads = []
+        for t, n in zip(ins, need):
+            gr = next(grads) if n else None
+            out_grads.append(torch.zeros_like(t) if n and gr is None else gr)
+        return (None, None, *out_grads)
+
+
+def _needs_grad(x: torch.Tensor, units) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for u in units for part in ("snake1", "conv1", "snake2", "conv2")
+        for t in u[part].values() if t is not None))
+
+
 def fused_res_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
-    """One res unit (param dict ``p``) on x [N, L, C]; returns x's dtype."""
+    """One res unit (param dict ``p``) on x [N, L, C]; returns x's dtype.
+    Differentiable in x and ``p`` when grad is on and one of them requires it
+    (:class:`KernelGrad` on the card)."""
+    if _needs_grad(x, (p,)):
+        tens = unit_tensors(p, x.device)
+
+        def plain(xx, *tt):
+            return res_unit_plain(xx, *tt, dilation)
+
+        if x.device.type == "cpu":
+            return plain(x.float(), *tens).to(x.dtype)
+        ops = _make([tens], x.device, False)
+        return KernelGrad.apply(lambda xx: launch_unit(xx, ops, dilation), plain,
+                                x.float(), *tens).to(x.dtype)
     ops = unit_operands(p, x.device)
     if x.device.type == "cpu":
         return res_unit_plain(x.float(), *ops.plain, dilation).to(x.dtype)
@@ -267,7 +321,16 @@ def fused_res_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
 
 
 def fused_res_trio(units, x: torch.Tensor) -> torch.Tensor:
-    """Three chained res units (dilations 1, 3, 9); ``units`` = (res1, res2, res3)."""
+    """Three chained res units (dilations 1, 3, 9); ``units`` = (res1, res2, res3).
+    Differentiable as :func:`fused_res_unit`."""
+    if _needs_grad(x, units):
+        per_unit = [unit_tensors(u, x.device) for u in units]
+        tens = tuple(torch.stack([t[i] for t in per_unit]) for i in range(8))
+        if x.device.type == "cpu":
+            return res_trio_plain(x.float(), *tens).to(x.dtype)
+        ops = _make(per_unit, x.device, True)
+        return KernelGrad.apply(lambda xx: launch_trio(xx, ops), res_trio_plain,
+                                x.float(), *tens).to(x.dtype)
     ops = trio_operands(units, x.device)
     if x.device.type == "cpu":
         return res_trio_plain(x.float(), *ops.plain).to(x.dtype)

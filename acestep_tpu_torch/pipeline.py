@@ -303,6 +303,7 @@ class AceStepEngine:
         admits (the engine's own clamp would truncate a merged request)."""
         return max(1, self.plan(64, bucket_frames(frames)).max_batch)
 
+    @torch.no_grad()
     def _silence_frames(self, t: int) -> torch.Tensor:
         """[1, t, 64] silence src latents, tiled from a 64-frame encode."""
         if self._silence is None:
@@ -407,6 +408,7 @@ class AceStepEngine:
             audio = np.repeat(audio, self.vae_cfg.audio_channels, axis=1)
         return audio
 
+    @torch.no_grad()
     def _encode_audio(self, audio: np.ndarray, max_frames: Optional[int] = None) -> torch.Tensor:
         """Whole latent frames of a stereo waveform (at most ``max_frames``),
         VAE-encoded in 128-frame windows of 32 overlap: [1, T, 64] on the device."""

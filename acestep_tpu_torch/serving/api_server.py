@@ -17,7 +17,11 @@ Endpoints:
   POST /v1/lyrics             LRC and token timestamps of a completed job
   GET/POST /v1/lora           list / register, activate, scale, deactivate,
                               unregister adapters (lora_runtime.LoRARuntime)
-  /v1/training/*, /v1/dataset/*  answered 501 until a manager is attached
+  POST /v1/training/start|stop, GET /v1/training/status
+                              background fine-tunes (training_manager.TrainingManager)
+  POST /v1/dataset/scan|build, GET /v1/dataset/status
+                              dataset builds (dataset_manager.DatasetManager)
+  (LoRA, training and dataset routes answer 501 where their manager is not attached)
 
 Jobs live in an in-memory store with TTL cleanup; one worker thread drains a
 FIFO queue, so generation is serialized per engine.  Optional API-key auth

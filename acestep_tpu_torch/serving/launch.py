@@ -23,8 +23,11 @@ else the engine alone (``make_generate_fn``).
 Payloads are the studio UI's (``serving/api_server.RequestParser`` reads
 their aliases).  Audio uploads (``src_audio_base64``, ``refer_audio_base64``:
 WAV, FLAC or MP3, base64 or a data URL) are decoded on the host and
-VAE-encoded by the engine.  The training and dataset routes answer 501:
-their managers come with the training slice.
+VAE-encoded by the engine.  The REST server carries a
+``TrainingManager`` (``/v1/training/*``: jobs on ``--device``, reading a
+dataset directory and a ``checkpoint_dir`` with ``dit`` files and a
+``config.json``) and a ``DatasetManager`` (``/v1/dataset/*``: scan, LM
+labeling where an LM is loaded, preprocessing through this engine).
 """
 
 from __future__ import annotations
@@ -395,6 +398,8 @@ def main(argv=None):
 
     if args.mode == "api":
         from acestep_tpu_torch.serving.api_server import ApiServer
+        from acestep_tpu_torch.serving.dataset_manager import DatasetManager
+        from acestep_tpu_torch.serving.training_manager import TrainingManager
 
         lora_rt = None
         if dit_base_params is not None:
@@ -413,7 +418,11 @@ def main(argv=None):
                                           if lm is not None else None),
                         format_input_fn=(fresh_seed(lm.format_sample_from_input)
                                          if lm is not None else None),
-                        lora_runtime=lora_rt)
+                        lora_runtime=lora_rt,
+                        training_manager=TrainingManager(device=args.device),
+                        dataset_manager=DatasetManager(
+                            engine, lm=lm,
+                            codec_params=build_codec(args.checkpoint, args.device)))
         port = srv.start(args.host, args.port or 8000)
         print(f"API + studio at http://{args.host}:{port}/  (POST /release_task)")
     else:

@@ -1,3 +1,3 @@
-"""Training-side helpers of the port: the dataset builder's
-``audio_to_codes`` and the LoRA merge (``lora``); training itself is still to
-be ported."""
+"""Training of the port: the flow-matching loss and optimizer
+(``flow_matching``), LoRA and LoKr adapters (``lora``, ``lokr``), datasets
+(``data``, ``dataset_builder``) and the ``trainer``."""

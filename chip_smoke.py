@@ -204,10 +204,44 @@ Phases, each announced by a timestamped line:
                 card vs CPU within 1.5x the drift of its plain version on the
                 card, never below 2e-3; wall s via HTTP against the direct
                 call, upload decode, FLAC encode, probe and LoRA seconds
- 27. recheck_full the kernel shapes those requests launched, as phase 22
+ 27. train      a full-width bf16 DiT (RandomInit, per-layer unfused lists)
+                through training.trainer.Trainer on a numpy batch of 2 (10 s,
+                250 frames; 320 condition tokens; item 2's last 50 frames out
+                of the loss): 5 LoRA steps (rank 16, alpha 16), 5 LoKr steps
+                (factor 8), 3 full steps; every loss finite, the base bit for
+                bit after the adapter steps, the decoder's LoRA b leaves zero
+                after step 1 (its learning rate is 0) and non-zero after step
+                2; ms a step after the first and peak device memory per mode;
+                the LoRA state checkpointed and resumed into a fresh Trainer
+                bit for bit, then one step from each with the same draws,
+                bit-equal
+ 28. train_check a small bf16 DiT (phase output's width), 3 LoRA and 2 full
+                steps on the card and on the CPU with the same draws: losses,
+                the gradients and the trained trees within TRAIN_REL; rows 7
+                and 8 inside vae_resunit.KernelGrad at the 10 s decode's
+                shapes, the forward within 1e-4 of the plain output and the
+                gradients w.r.t. x and every weight within 1e-4 of autograd
+                through the plain version on the card; a backward without the
+                snake's sin^2 term, and the single-pass TF32 kernel as the
+                forward, each rejected at each shape
+ 29. train_server phase full's engine behind the REST server with both
+                managers (127.0.0.1, port 0): /v1/dataset/scan and
+                /v1/dataset/build over two numpy WAVs (20 s and 30 s, 48 kHz
+                stereo, default_rng(4), auto_label off) polled to completed;
+                phase train's DiT saved with loader.save_params and a
+                config.json; /v1/training/start (lora, 4 steps, lr
+                SERVER_TRAIN_LR) polled to completed, its export on disk; the
+                same job run directly (the server's overhead); the exported
+                adapter registered and activated through /v1/lora (the audio
+                moves) and deactivated (the base's int16 bit for bit); build,
+                train and activation seconds
+ 30. cli        python -m acestep_tpu_torch.cli --pipeline-style-lyric
+                --audio-seconds 10 in a subprocess on the card: rc 0, the JSON
+                line parses, the WAV holds 480000 frames
+ 31. recheck_full the kernel shapes those requests launched, as phase 22
                 (row 11 at the +think CoT's and the candidates' cache
-                lengths), and those of the served jobs
- 28. timing     kernel, plain-version and library-call times at the served
+                lengths), and those of the served jobs and the dataset build
+ 32. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
@@ -215,7 +249,9 @@ Phases, each announced by a timestamped line:
                 dequant-matmul shapes also as a CUDA graph (device time) with
                 their TFLOP/s, and the q8_0 kernel at the LM requests' shapes;
                 rows 4, 7 and 8 also per 600 s request, rows 7 and 8 per
-                60 s source encoded;
+                60 s source encoded and per dataset sample (their launches in
+                the build and in phase train_check's backward check in their
+                rows);
                 the LM kernels at three valid lengths of the request, weighted
                 by its launches (rows 9 / 10 also as CUDA graphs beside SDPA;
                 row 11 with its stage split; row 6 at each shape also as CUDA
@@ -323,6 +359,18 @@ SERVER_A_S, SERVER_B_S = 30.0, 60.0
 LORA_RANK = 16
 PROBE_ATOL = 2e-3              # tests/test_torch_alignment.py: the probe against the JAX package
 POLL_S = 0.05                  # a client's /query_result period (and 0.002 once, to show contention)
+TRAIN_T, TRAIN_LC, TRAIN_MASKED = 250, 320, 50    # 10 s, the condition tokens, frames out of item 2's loss
+TRAIN_STEPS = (("lora", 5), ("lokr", 5), ("full", 3))
+TRAIN_LR = 1e-4
+# phase train_check's card-vs-CPU bound on a small bf16 DiT (norm of the difference
+# over the CPU's, per leaf): the products are f32 on both sides, so the steps
+# differ where a bf16 rounding of an activation lands on the other side of a tie
+TRAIN_REL = 2e-2
+# the REST job's learning rate: 4 steps (the first at 0, then the cosine) move the
+# rank-16 b leaves by ~1e-2, the merged deltas by ~2e-3 against the q4_k steps
+# of ~5e-3 of these weights, so many requantized fields change
+SERVER_TRAIN_LR = 5e-3
+CLI_TIMEOUT_S = 300
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -2378,6 +2426,474 @@ def serve_http(engine, dit_tree, pipe, src_wave, refer_wave, names, mega_name, s
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_batch(dit_cfg, device, frames=TRAIN_T, lc=TRAIN_LC, masked=TRAIN_MASKED, seed=11):
+    """A batch of 2 made with numpy: latents, the text2music context, ``lc``
+    condition tokens (all valid), item 2's last ``masked`` frames out of the loss."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = {"latents": rng.standard_normal((2, frames, dit_cfg.audio_acoustic_hidden_dim)),
+         "context_latents": rng.standard_normal((2, frames, dit_cfg.context_dim)),
+         "encoder_hidden_states": rng.standard_normal((2, lc, dit_cfg.hidden_size)),
+         "loss_mask": np.ones((2, frames))}
+    b["loss_mask"][1, frames - masked:] = 0.0
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in b.items()}
+    out["encoder_attn_mask"] = torch.ones((2, lc), dtype=torch.int32, device=device)
+    return out
+
+
+def list_tree(init, dit_cfg):
+    """A DiT drawn by ``init`` as training takes it: per-layer (unfused) lists."""
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+
+    tree = init.dit(dit_cfg)
+    tree["layers"] = unstack_layer_params(tree["layers"])
+    return tree
+
+
+def decoder_b_leaves(lora):
+    return [leaf["kernel"]["b"] for layer in lora["layers"]
+            for group in ("self_attn", "cross_attn", "mlp") for leaf in layer[group].values()
+            if isinstance(leaf, dict) and isinstance(leaf.get("kernel"), dict)]
+
+
+def same_trainer_state(a, b) -> bool:
+    import torch
+
+    from acestep_tpu_torch.weights import tree_leaves
+
+    la = tree_leaves(a.trainable) + tree_leaves(a.opt_state.mu) + tree_leaves(a.opt_state.nu)
+    lb = tree_leaves(b.trainable) + tree_leaves(b.opt_state.mu) + tree_leaves(b.opt_state.nu)
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count and len(la) == len(lb)
+            and all(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+                    for x, y in zip(la, lb)))
+
+
+def train_full_width(dit_cfg, work, device="cuda"):
+    """Phase train: LoRA, LoKr and full steps of a full-width bf16 DiT through
+    the Trainer; a LoRA checkpoint resumed bit for bit.  The full steps run
+    last, on the drawn tree itself (this function drops its own reference and
+    the base's snapshot first, so the peak is the trainer's alone).  Returns
+    (the DiT tree after the full steps, stats by mode)."""
+    import torch
+
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.training.flow_matching import draw
+    from acestep_tpu_torch.training.trainer import TrainConfig, Trainer
+    from acestep_tpu_torch.weights import tree_leaves
+
+    t = time.perf_counter()
+    base = list_tree(RandomInit(torch.device(device), 7, None), dit_cfg)
+    batch = train_batch(dit_cfg, device)
+    snapshot = [x.clone() for x in tree_leaves(base)]
+    sync()
+    n_params = sum(x.numel() for x in snapshot)
+    log(f"full-width bf16 DiT for training drawn in {time.perf_counter() - t:.1f} s: "
+        f"{n_params / 1e9:.3f} B parameters in {len(snapshot)} leaves; batch 2 x "
+        f"{TRAIN_T} frames, {TRAIN_LC} condition tokens, item 2's last {TRAIN_MASKED} frames "
+        f"out of the loss")
+    stats = {}
+    for mode, steps in TRAIN_STEPS:
+        if mode == "full":
+            snapshot = None             # only the adapter modes check the base
+        free_engine()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tc = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100, mode=mode,
+                         lora_rank=LORA_RANK, lora_alpha=16.0, lokr_factor=8,
+                         checkpoint_every=0, log_every=1000)
+        tr = Trainer(base, dit_cfg, tc, os.path.join(work, mode), seed=0, device=device)
+        if mode == "full":
+            base = None                 # the trainer holds the only reference
+        n_train = sum(x.numel() for x in tree_leaves(tr.trainable))
+        secs, losses = [], []
+        for i in range(steps):
+            sync()
+            t = time.perf_counter()
+            losses.append(tr.train_step(batch))
+            sync()
+            secs.append(time.perf_counter() - t)
+            if mode == "lora" and i < 2:
+                nonzero = [bool(x.any()) for x in decoder_b_leaves(tr.trainable)]
+                require(nonzero and all(nonzero) == (i == 1) and any(nonzero) == (i == 1),
+                        f"lora step {i + 1}: decoder b leaves non-zero {sum(nonzero)} of "
+                        f"{len(nonzero)} (step 1's learning rate is 0)")
+        require(all(math.isfinite(x) for x in losses), f"{mode}: losses {losses}")
+        if mode != "full":
+            require(all(torch.equal(a, b) for a, b in zip(snapshot, tree_leaves(base))),
+                    f"{mode}: the base changed")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0
+        stats[mode] = {"ms_per_step": 1e3 * sum(secs[1:]) / (len(secs) - 1),
+                       "step_s": [round(s, 4) for s in secs], "peak_gib": peak,
+                       "trainable": n_train, "losses": [round(x, 5) for x in losses]}
+        log(f"train {mode}: {steps} steps, {n_train / 1e6:.2f} M trainable; losses "
+            f"{stats[mode]['losses']}; s a step {stats[mode]['step_s']} (first a warm-up): "
+            f"{stats[mode]['ms_per_step']:.1f} ms a step after it; peak device memory "
+            f"{peak:.2f} GiB" + ("; the base bit-identical after the steps"
+                                 if mode != "full" else ""))
+        if mode == "lora":
+            t = time.perf_counter()
+            path = tr.save_checkpoint()
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            tr2 = Trainer(base, dit_cfg, tc, os.path.join(work, mode), seed=0, device=device)
+            require(tr2.resume() and same_trainer_state(tr, tr2),
+                    "the resumed LoRA trainer's state differs from the saved one")
+            resume_s = time.perf_counter() - t
+            t_d, noise = draw(torch.Generator(device=device).manual_seed(5), batch["latents"])
+            a = tr.step_fn(tr.trainable, tr.opt_state, batch, t_d, noise)
+            b = tr2.step_fn(tr2.trainable, tr2.opt_state, batch, t_d, noise)
+            require(torch.equal(a[2], b[2]) and a[1].count == b[1].count and all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(a[0]) + tree_leaves(a[1].mu),
+                                                  tree_leaves(b[0]) + tree_leaves(b[1].mu))),
+                    "a step from the resumed state differs from a step from the saved state")
+            log(f"LoRA checkpoint {os.path.basename(path)} ({save_s:.2f} s) resumed into a "
+                f"fresh Trainer ({resume_s:.2f} s): trainable tree, moments, count and step "
+                f"bit for bit; one more step from each with the same draws: bit-equal "
+                f"(loss {float(a[2]):.6f})")
+            del tr2, a, b               # tr2 holds the base too
+        if mode == "full":
+            base = tr.trainable
+        del tr
+    return base, stats
+
+
+def train_card_vs_cpu(small_dit):
+    """Phase train_check, part 1: 3 LoRA steps and 2 full steps of a small bf16
+    DiT on the card and on the CPU with the same draws; the losses, the
+    gradients at the start and the trained trees within TRAIN_REL (norm of the
+    difference over the norm of the CPU's, per leaf)."""
+    import torch
+
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.training import flow_matching as fm
+    from acestep_tpu_torch import weights
+    from acestep_tpu_torch.training import lora as tlora
+    from acestep_tpu_torch.weights import tree_to
+
+    base = list_tree(RandomInit(torch.device("cpu"), 3, None), small_dit)
+    lora0 = tlora.init_lora(torch.Generator().manual_seed(0), base, rank=8)
+    gen = torch.Generator().manual_seed(6)
+    batch0 = train_batch(small_dit, "cpu", frames=100, lc=40, masked=20)
+    draws = [fm.draw(gen, batch0["latents"]) for _ in range(5)]
+    runs = {}
+    for d in ("cpu", "cuda"):
+        batch = {k: v.to(d) for k, v in batch0.items()}
+        p = tree_to(base, d)
+        live = [x.detach().requires_grad_() for x in weights.tree_leaves(p)]
+        t, noise = (x.to(d) for x in draws[0])
+        loss = fm.flow_matching_loss(weights.tree_unflatten(p, live), small_dit, batch, t, noise)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        opt = fm.make_optimizer(lr=1e-3, warmup_steps=1, total_steps=10)
+        step = tlora.make_lora_train_step(p, small_dit, opt, alpha=8.0)
+        tree, state, losses = tree_to(lora0, d), None, []
+        state = opt.init(tree)
+        for i in range(3):
+            tree, state, l = step(tree, state, batch, *(x.to(d) for x in draws[i]))
+            losses.append(float(l))
+        full = fm.make_train_step(small_dit, opt)
+        ptree, pstate = p, opt.init(p)
+        for i in range(3, 5):
+            ptree, pstate, l = full(ptree, pstate, batch, *(x.to(d) for x in draws[i]))
+            losses.append(float(l))
+        runs[d] = (losses, [None if g is None else g.float().cpu() for g in grads],
+                   [x.float().cpu() for x in weights.tree_leaves(tree)],
+                   [x.float().cpu() for x in weights.tree_leaves(ptree)])
+
+    def rel(a, b):
+        if a is None or b is None:
+            return 0.0 if a is b else float("inf")
+        return float((a - b).norm() / b.norm().clamp(min=1e-30)) if b.norm() > 0 else \
+            float(a.norm())
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    errs = {name: max(rel(a, b) for a, b in zip(runs["cuda"][i], runs["cpu"][i]))
+            for i, name in ((1, "grads"), (2, "adapter"), (3, "full params"))}
+    log(f"small DiT ({small_dit.hidden_size} x {small_dit.num_hidden_layers}) card vs CPU, "
+        f"3 LoRA + 2 full steps, the same draws: losses card {runs['cuda'][0]}, CPU "
+        f"{runs['cpu'][0]}; max relative loss difference {loss_rel:.3e}; per-leaf "
+        f"|card - CPU| / |CPU| (norms): " + json.dumps({k: f"{v:.3e}" for k, v in errs.items()})
+        + f" (bound {TRAIN_REL:g})")
+    require(loss_rel <= TRAIN_REL and all(v <= TRAIN_REL for v in errs.values()),
+            "small DiT training: the card disagrees with the CPU")
+
+
+def res_backward_checks(vae_cfg):
+    """Phase train_check, part 2: rows 7 and 8 inside KernelGrad at the 10 s
+    decode's shapes, gradients w.r.t. x and every weight against autograd
+    through the plain version on the card (RES_TOL of each gradient's peak),
+    and the forward that KernelGrad returns against the plain output (RES_TOL
+    of the peak, and the kernels' own check_close bound).  Two planted faults
+    must be rejected: the backward with the snake's sin^2 term dropped, and
+    the single-pass TF32 kernel as KernelGrad's forward.  Returns (launches,
+    shapes) of the checks."""
+    import torch
+
+    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
+
+    def no_sin_unit(x, w1, b1, w2, b2, a1, be1, a2, be2, d):
+        s1 = x.transpose(1, 2)
+        y1 = torch.nn.functional.conv1d(s1, w1.permute(2, 1, 0), b1, padding=3 * d,
+                                        dilation=d)
+        return x + (y1.transpose(1, 2) @ w2 + b2)
+
+    def no_sin_trio(x, *stacked):
+        for i, d in enumerate(vru.TRIO_D):
+            x = no_sin_unit(x, *(t[i] for t in stacked), d)
+        return x
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    up = vae_cfg.upsampling_ratios
+    l256 = TRAIN_T * up[0] * up[1] * up[2]
+    cases = [("unit", (1, l256, 256), d) for d in vru.TRIO_D]
+    cases += [("trio", (1, l256 * up[3], 128), None),
+              ("trio", (1, l256 * up[3] * up[4], 128), None)]
+    reset_counts()
+    worst = 0.0
+    for kind, (n, length, c), d in cases:
+        units = ((_unit_params(c, 60),) if kind == "unit"
+                 else tuple(_unit_params(c, 61 + j) for j in range(3)))
+        x = _res_x(n, length, c, 62)
+        leaves = [v for u in units for part in u.values() for v in part.values()]
+
+        def grads(fn):
+            ins = [x.clone().requires_grad_()] + [v.requires_grad_() for v in leaves]
+            out = fn(ins[0])
+            w = torch.linspace(-1.0, 1.0, out.numel(), device=out.device).reshape(out.shape)
+            gs = torch.autograd.grad((out * w).sum(), ins)
+            for v in leaves:
+                v.requires_grad_(False)
+            return out.detach(), gs
+
+        def fwd_errs(out, ref_out):
+            outside = float(((out - ref_out).abs()
+                             / (RES_TOL + RES_TOL * ref_out.abs())).max())
+            return rel(out, ref_out), outside
+
+        if kind == "unit":
+            tens = vru.unit_tensors(units[0])
+            got = grads(lambda xx: vru.fused_res_unit(units[0], xx, d))
+            ref = grads(lambda xx: vru.res_unit_plain(xx, *vru.unit_tensors(units[0]), d))
+            ops = vru.unit_operands(units[0])
+            faulty = grads(lambda xx: vru.KernelGrad.apply(
+                lambda a: vru.launch_unit(a, ops, d),
+                lambda a, *tt: no_sin_unit(a, *tt, d), xx, *vru.unit_tensors(units[0])))
+            tf32 = grads(lambda xx: vru.KernelGrad.apply(
+                lambda a: vru.launch_unit_tf32(a, ops, d),
+                lambda a, *tt: vru.res_unit_plain(a, *tt, d), xx,
+                *vru.unit_tensors(units[0])))
+        else:
+            def stacked():
+                per = [vru.unit_tensors(u) for u in units]
+                return tuple(torch.stack([p[i] for p in per]) for i in range(8))
+
+            got = grads(lambda xx: vru.fused_res_trio(units, xx))
+            ref = grads(lambda xx: vru.res_trio_plain(xx, *stacked()))
+            ops = vru.trio_operands(units)
+            faulty = grads(lambda xx: vru.KernelGrad.apply(
+                lambda a: vru.launch_trio(a, ops), no_sin_trio, xx, *stacked()))
+            tf32 = grads(lambda xx: vru.KernelGrad.apply(
+                lambda a: vru.launch_trio_tf32(a, ops), vru.res_trio_plain, xx, *stacked()))
+        errs = [rel(g, r) for g, r in zip(got[1], ref[1])]
+        fault = max(rel(g, r) for g, r in zip(faulty[1], ref[1]))
+        fwd_rel, fwd_out = fwd_errs(got[0], ref[0])
+        tf32_rel, tf32_out = fwd_errs(tf32[0], ref[0])
+        fwd_ok = fwd_rel <= RES_TOL and fwd_out <= 1
+        tf32_caught = not (tf32_rel <= RES_TOL and tf32_out <= 1)
+        worst = max(worst, max(errs), fwd_rel)
+        log(f"  {kind} {(n, length, c)}{'' if d is None else f' d={d}'} forward: "
+            f"{fwd_rel:.3e} of the peak, max err / check_close bound {fwd_out:.2f}; backward: "
+            f"grad x {errs[0]:.3e}, weights max {max(errs[1:]):.3e} of the peak (bound "
+            f"{RES_TOL:g}); planted faults: sin^2 dropped in the backward {fault:.3e} "
+            f"{'rejected' if fault > RES_TOL else 'NOT rejected'}, single-pass TF32 forward "
+            f"{tf32_rel:.3e} of the peak, max err / bound {tf32_out:.2f} "
+            f"{'rejected' if tf32_caught else 'NOT rejected'}")
+        require(fwd_ok, f"{kind}: KernelGrad's forward disagrees with the plain version")
+        require(all(e <= RES_TOL for e in errs), f"{kind} backward disagrees with its plain "
+                "version's autograd")
+        require(fault > RES_TOL, f"{kind}: the planted backward fault was not rejected")
+        require(tf32_caught, f"{kind}: the planted forward fault (TF32) was not rejected")
+        del got, ref, faulty, tf32
+        free_engine()
+    counts = snapshot_counts()
+    log(f"res kernels' backward check: worst {worst:.3e}; forward launches "
+        + json.dumps({k: v for k, v in counts[0].items() if v}))
+    return counts
+
+
+def train_server(engine, dit_tree, train_tree, dit_cfg, work, device="cuda"):
+    """Phase train_server: the REST server with both managers on 127.0.0.1
+    port 0, phase full's engine.  /v1/dataset/build over two numpy-made WAVs,
+    /v1/training/start (lora, 4 steps) on phase train's DiT saved as a
+    checkpoint, the same job run directly for the server's overhead, and the
+    exported adapter served through /v1/lora.  Returns {label: (launches,
+    shapes)}."""
+    import base64
+    import dataclasses as dc
+
+    import numpy as np
+
+    from acestep_tpu_torch import loader
+    from acestep_tpu_torch.lora_runtime import LoRARuntime
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+    from acestep_tpu_torch.serving import launch
+    from acestep_tpu_torch.serving.api_server import ApiServer
+    from acestep_tpu_torch.serving.dataset_manager import DatasetManager
+    from acestep_tpu_torch.serving.training_manager import (
+        TrainingManager, default_trainer_factory)
+    from acestep_tpu_torch.utils.audio import write_wav
+
+    served, secs = {}, {}
+    songs = os.path.join(work, "songs")
+    os.makedirs(songs)
+    rng = np.random.default_rng(4)
+    for name, seconds in (("song_20s.wav", 20.0), ("song_30s.wav", 30.0)):
+        wave = (rng.standard_normal((int(seconds * AUDIO_SR), 2)) * 0.1).astype(np.float32)
+        write_wav(os.path.join(songs, name), wave, AUDIO_SR)
+    with open(os.path.join(songs, "song_20s.txt"), "w") as f:
+        f.write("bright synth pop with a driving beat")
+    t = time.perf_counter()
+    ckpt = os.path.join(work, "train_ckpt")
+    os.makedirs(ckpt)
+    loader.save_params(os.path.join(ckpt, "dit"), train_tree)
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(dc.asdict(dit_cfg), f)
+    secs["checkpoint save"] = time.perf_counter() - t
+    base = dict(dit_tree, layers=unstack_layer_params(dit_tree["layers"]))
+    srv = ApiServer(launch.make_generate_fn(engine), lora_runtime=LoRARuntime(engine, base),
+                    training_manager=TrainingManager(device=device),
+                    dataset_manager=DatasetManager(engine))
+    port = srv.start("127.0.0.1", 0)
+    try:
+        code, scan = http(port, "/v1/dataset/scan", {"directory": songs})
+        require(code == 200 and scan["count"] == 2, f"/v1/dataset/scan: {code} {scan}")
+        ds = os.path.join(work, "dataset")
+        reset_counts()
+        t = time.perf_counter()
+        code, out = http(port, "/v1/dataset/build", {"directory": songs, "output_dir": ds,
+                                                     "auto_label": False})
+        require(code == 200, f"/v1/dataset/build answered {code}: {out}")
+        while True:
+            code, st = http(port, "/v1/dataset/status")
+            require(code == 200, f"/v1/dataset/status answered {code}")
+            if st["state"] in ("completed", "failed"):
+                break
+            time.sleep(POLL_S)
+        secs["dataset build"] = time.perf_counter() - t
+        served["dataset build"] = snapshot_counts()
+        require(st["state"] == "completed" and st["done"] == 2, f"dataset build: {st}")
+        from acestep_tpu_torch.training.data import PreprocessedDataset
+
+        pds = PreprocessedDataset(ds)
+        frames = [pds.load(i)["latents"].shape[0] for i in range(2)]
+        hop = engine.vae_cfg.hop_length
+        require(frames == [int(20 * AUDIO_SR) // hop, int(30 * AUDIO_SR) // hop] and all(np.isfinite(pds.load(i)["latents"]).all()
+                                             for i in range(2)), f"dataset frames {frames}")
+        counts = served["dataset build"][0]
+        require(counts[vru_names()[0]] > 0 and counts[vru_names()[1]] > 0,
+                "the dataset build did not launch the res kernels")
+        log(f"/v1/dataset/build of 2 WAVs (20 s, 30 s): {secs['dataset build']:.3f} s "
+            f"({secs['dataset build'] / 2:.3f} s a sample, polled every {POLL_S} s); latents "
+            f"{frames} frames; launches " + json.dumps({k: v for k, v in counts.items() if v}))
+
+        payload = {"dataset_dir": ds, "checkpoint_dir": ckpt, "output_dir":
+                   os.path.join(work, "job"), "mode": "lora", "lora_rank": LORA_RANK,
+                   "lora_alpha": 16.0, "total_steps": 4, "batch_size": 1,
+                   "checkpoint_every": 0, "lr": SERVER_TRAIN_LR}
+        t = time.perf_counter()
+        code, out = http(port, "/v1/training/start", payload)
+        require(code == 200, f"/v1/training/start answered {code}: {out}")
+        while True:
+            code, st = http(port, "/v1/training/status")
+            require(code == 200, f"/v1/training/status answered {code}")
+            if st["state"] in ("completed", "failed", "stopped"):
+                break
+            time.sleep(POLL_S)
+        secs["training job via HTTP"] = time.perf_counter() - t
+        require(st["state"] == "completed" and st["step"] == 4 and st.get("export_path")
+                and os.path.exists(st["export_path"] + ".safetensors"),
+                f"training job: {st}")
+        require(all(math.isfinite(x) for x in st["loss_history_tail"]), f"losses {st}")
+        # the same job run directly: the server's overhead is the difference
+        t = time.perf_counter()
+        trainer, batches = default_trainer_factory(dict(payload, output_dir=os.path.join(
+            work, "direct")), device=device)
+        trainer.train(batches, max_steps=4, log_fn=lambda m: None)
+        trainer.export("adapter")
+        sync()
+        secs["the same job direct"] = time.perf_counter() - t
+        del trainer, batches
+        log(f"/v1/training/start lora rank {LORA_RANK}, 4 steps at lr {SERVER_TRAIN_LR:g} on "
+            f"phase train's DiT ({secs['checkpoint save']:.2f} s to save it): "
+            f"{secs['training job via HTTP']:.3f} s through the server, "
+            f"{secs['the same job direct']:.3f} s direct (checkpoint load, dataset, 4 steps, "
+            f"export); losses {st['loss_history_tail']}; export {st['export_path']}")
+
+        pay = {"caption": LM_CAPTION, "lyrics": LM_LYRICS, "duration": 10.0, "seed": 3}
+        base_res = http_job(port, pay, "trained LoRA, base")[0]
+        code, out = http(port, "/v1/lora", {"action": "register", "name": "trained",
+                                            "path": st["export_path"], "alpha": 16.0})
+        require(code == 200, f"/v1/lora register answered {code}: {out}")
+        runs = {}
+        for action in ("activate", "deactivate"):
+            sync()
+            t = time.perf_counter()
+            code, out = http(port, "/v1/lora", {"action": action, "name": "trained"})
+            secs[f"LoRA {action}"] = time.perf_counter() - t
+            require(code == 200, f"/v1/lora {action} answered {code}: {out}")
+            runs[action], _, _, served[f"trained LoRA {action}"] = http_job(
+                port, pay, f"trained LoRA {action}")
+        a0, a1, a2 = (base64.b64decode(r["audio_base64"])
+                      for r in (base_res, runs["activate"], runs["deactivate"]))
+        require(a1 != a0, "the trained adapter left the audio as it was")
+        require(a2 == a0, "deactivating the trained adapter did not restore the base's int16")
+        log(f"the trained adapter through /v1/lora: activate {secs['LoRA activate']:.3f} s "
+            f"(merge into the q4_k kernels, requantized), the audio moved; deactivate "
+            f"{secs['LoRA deactivate']:.3f} s restored the base's int16 bit for bit")
+    finally:
+        srv.stop()
+    log("train_server seconds: " + json.dumps({k: round(v, 4) for k, v in secs.items()}))
+    return served, secs
+
+
+def vru_names():
+    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
+
+    return vru.UNIT.name, vru.TRIO.name
+
+
+def cli_run(work):
+    """Phase cli: the port's CLI in a subprocess on the card."""
+    import numpy as np
+
+    from acestep_tpu_torch.utils.audio import read_wav
+
+    out = os.path.join(work, "cli.wav")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "acestep_tpu_torch.cli",
+                           "--pipeline-style-lyric", "--audio-seconds", "10", "--out", out],
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t
+    require(proc.returncode == 0, f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    audio, sr = read_wav(out)
+    require(info["mode"] == "pipeline" and info["samples"] == 480000
+            and audio.shape == (480000, 2) and sr == AUDIO_SR and np.abs(audio).max() > 0,
+            f"CLI: {info}, WAV {audio.shape} at {sr}")
+    log(f"python -m acestep_tpu_torch.cli --pipeline-style-lyric --audio-seconds 10: rc 0 in "
+        f"{wall:.1f} s (process start, full-width q8_0 engine drawn on the card, one "
+        f"request); WAV {audio.shape[0]} frames at {sr} Hz; JSON line " + json.dumps(info)
+        + "; stderr: " + proc.stderr.strip().splitlines()[-1])
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -3041,14 +3557,32 @@ def run() -> int:
     phase("server")
     served_http = serve_http(engine, dit_tree, pipe, src_wave, refer_wave, names, mega_name,
                              audio_small_cfgs(small_dit) + (small_text,))
-    del engine, dit_tree
+
+    phase("train")
+    work_train = tempfile.TemporaryDirectory(prefix="acestep_train_")
+    train_tree, train_stats = train_full_width(dit_cfg, work_train.name)
+
+    phase("train_check")
+    train_card_vs_cpu(small_dit)
+    served_bwd = res_backward_checks(vae_cfg)
+
+    phase("train_server")
+    served_train, train_secs = train_server(engine, dit_tree, train_tree, dit_cfg,
+                                            work_train.name)
+    del engine, dit_tree, train_tree
     free_engine()
+
+    phase("cli")
+    cli_run(work_train.name)
+    work_train.cleanup()
 
     phase("recheck_full")
     for key, (_, _, shapes) in full_runs.items():
         recheck_shapes(shapes, 98, lm_check)
     for key, (_, shapes) in served_http.items():
         recheck_shapes(shapes, 97, lm_check)
+    for key, (_, shapes) in served_train.items():
+        recheck_shapes(shapes, 96, lm_check)
 
     phase("timing")
     import torch.nn.functional as F
@@ -3158,6 +3692,15 @@ def run() -> int:
     # the encoder's share of rows 7-8: one 60 s source (24 windows)
     for name in (unit, trio):
         timed(name, "encode 60s")
+    # rows 7-8 in the dataset build (two samples, 20 s and 30 s) and their
+    # launches in the backward check beside the main path's
+    served["dataset build"] = served_train["dataset build"]
+    for row in rows:
+        if row["name"] in (unit, trio):
+            tot = timed(row["name"], "dataset build")
+            row["launches_per_dataset_sample"] = served["dataset build"][0][row["name"]] / 2
+            row["ms_per_dataset_sample"] = tot["ms"] / 2
+            row["launches_backward_check"] = served_bwd[0][row["name"]]
     # the q8_0 kernel on the shapes the LM requests launched (prefill, codes head,
     # layer-scan linears), weighted by their launches
     for key in ("default 2", "pallas"):

@@ -153,7 +153,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/utils/flac.py", "acestep_tpu_torch/utils/mp3.py",
                    "acestep_tpu_torch/serving/api_server.py",
                    "acestep_tpu_torch/serving/openrouter_server.py",
-                   "tests/test_torch_cuda_serving.py"):
+                   "tests/test_torch_cuda_serving.py", "acestep_tpu_torch/cli.py",
+                   "acestep_tpu_torch/settings.py", "acestep_tpu_torch/training/data.py",
+                   "acestep_tpu_torch/training/flow_matching.py",
+                   "acestep_tpu_torch/training/lokr.py", "acestep_tpu_torch/training/trainer.py",
+                   "acestep_tpu_torch/serving/training_manager.py",
+                   "acestep_tpu_torch/serving/dataset_manager.py",
+                   "tests/test_torch_cuda_training.py"):
         assert module in names, module
     for path in files:
         for name in _imports(path):
