@@ -12,8 +12,7 @@ import torch
 from acestep_tpu_torch.config import DiTConfig, QwenConfig, VAEConfig
 from acestep_tpu_torch.models import dit
 from acestep_tpu_torch.quant import QUANT_FORMATS, quantize, supported_format_for
-
-MIN_QUANT_ELEMS = 64 * 1024  # kernels smaller than this stay bf16 (JAX default_policy)
+from acestep_tpu_torch.quant.convert import MIN_QUANT_ELEMS
 
 
 class RandomInit:

@@ -58,7 +58,7 @@ def build_dataset(engine, samples: Sequence[Dict[str, Any]], out_dir: str) -> st
         tensors = preprocess_sample(engine, s["audio"], s["style_token_ids"],
                                     s.get("lyric_token_ids"))
         name = f"sample_{i:05d}.safetensors"
-        save_safetensors(os.path.join(out_dir, name), tensors, {})
+        save_safetensors(os.path.join(out_dir, name), tensors)
         names.append(name)
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump({"samples": names, "count": len(names)}, f)

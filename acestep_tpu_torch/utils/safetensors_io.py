@@ -2,16 +2,16 @@
 the file format the JAX package reads and writes.
 
 Format: 8-byte little-endian header length, a JSON header
-``{name: {dtype, shape, data_offsets}}`` (optional ``__metadata__``), then the
-raw little-endian tensor bytes.  bf16 tensors are kept as raw ``uint16`` bits.
-Reads are lazy, through a memory map.
+``{name: {dtype, shape, data_offsets}}`` (an optional ``__metadata__`` dict of
+strings first), then the raw little-endian tensor bytes.  bf16 tensors are
+kept as raw ``uint16`` bits.  Reads are lazy, through a memory map.
 """
 
 from __future__ import annotations
 
 import json
 import struct
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -48,12 +48,17 @@ class SafetensorsFile:
         with open(path, "rb") as f:
             (header_len,) = struct.unpack("<Q", f.read(8))
             self.header = json.loads(f.read(header_len))
-        self.header.pop("__metadata__", None)
+        self.metadata = self.header.pop("__metadata__", {})
         self._data_offset = 8 + header_len
         self._mm = np.memmap(path, mode="r", dtype=np.uint8)
 
     def keys(self):
         return self.header.keys()
+
+    def info(self, name: str) -> Tuple[str, Tuple[int, ...]]:
+        """(safetensors dtype, shape) of a tensor, read from the header."""
+        e = self.header[name]
+        return e["dtype"], tuple(e["shape"])
 
     def tensor(self, name: str, as_f32: bool = False) -> np.ndarray:
         """The tensor's array (bf16 as raw bits); ``as_f32`` converts any
@@ -70,10 +75,15 @@ class SafetensorsFile:
 
 
 def save_safetensors(path: str, tensors: Dict[str, np.ndarray],
-                     dtype_map: Dict[str, str]) -> None:
-    """``dtype_map`` overrides the declared dtype per tensor name (raw-bits
-    uint16 arrays that are really BF16)."""
+                     metadata: Optional[Dict[str, str]] = None,
+                     dtype_map: Optional[Dict[str, str]] = None) -> None:
+    """``metadata`` becomes the header's ``__metadata__``; ``dtype_map``
+    overrides the declared dtype per tensor name (raw-bits uint16 arrays that
+    are really BF16)."""
+    dtype_map = dtype_map or {}
     header: Dict[str, dict] = {}
+    if metadata:
+        header["__metadata__"] = metadata
     offset = 0
     blobs = []
     for name, arr in tensors.items():

@@ -119,10 +119,25 @@ Phases, each announced by a timestamped line:
                 temporary directory, read back through
                 serving.launch.build_engine(dir) on the card: the same int16
                 output, exactly
- 18. recheck    every (kernel, shape) the served requests launched that phase 3
+ 18. convert    the converter on full-width weights: a bf16 DiT (the tree of
+                phase train), the bf16 Qwen3-0.6B text encoder and the f32 VAE
+                drawn on the card, written in the reference's safetensors
+                layout (the importers' transforms inverted; each VAE conv as
+                weight_v plus weight_g) to a temporary directory;
+                python -m acestep_tpu_torch.convert_checkpoint at q4_k on the
+                host (the native C++ quantizers), seconds per component;
+                build_engine of its output: the DiT and text-encoder leaves
+                equal bit for bit to the drawn trees quantized in memory on
+                the card
+                (quant.convert.quantize_tree), the VAE's within a few f32 ulps
+                (the f64 fold); configs[1]'s 60 s request (explicit noise)
+                through rows 4, 1, 7 and 8, its latents equal bit for bit to
+                an engine of the in-memory trees and its int16 at the Q8_0
+                gate (eval_metrics); a roofline line of its DiT step
+ 19. recheck    every (kernel, shape) the served requests launched that phase 3
                 did not cover, against the plain version: configs[3]'s merged
                 batches and the merged-vs-solo runs too
- 19. check_lm   the LM decode kernels against their plain versions at the
+ 20. check_lm   the LM decode kernels against their plain versions at the
                 0.6B planner's full width (16 query / 8 kv heads, 28 layers of
                 int8 cache, T = 1408), B in {1, 4, 8}, lengths 1, 128 and
                 ragged, T = 1024 (one T block) and lengths on chunk and T-block
@@ -136,9 +151,9 @@ Phases, each announced by a timestamped line:
                 bit-identical with the occupancy grid (20 reruns of the B = 4,
                 28-layer case); then four planted faults in the plain version,
                 each of which one depth rejects
- 20. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
+ 21. lm_engine  the full-width random 0.6B q8_0 LM planner (fused weights,
                 quantized head, int8 KV), drawn on the card
- 21. lm_serve   configs[2]'s LM request through
+ 22. lm_serve   configs[2]'s LM request through
                 LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
                 100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
                 0.95): three times on the default path (megakernel), once with
@@ -147,23 +162,23 @@ Phases, each announced by a timestamped line:
                 int8_act on, once on the default path (the head through row 6)
                 and once with decode_mega=0 (every layer linear too);
                 time_costs and launches of every request
- 22. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 18,
-                and every (B, T) of row 11 not checked in phase 19, through
-                the LM's own 28 layers at phase 19's 28-layer bounds
- 23. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
+ 23. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 19,
+                and every (B, T) of row 11 not checked in phase 20, through
+                the LM's own 28 layers at phase 20's 28-layer bounds
+ 24. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
                 same LM on the CPU (plain versions), both fed the CPU's tokens:
                 logits of the first two steps within 2e-2 of the peak (4e-2
                 with int8 activations), the top token equal at every step whose
                 CPU top-1/top-2 gap is at least 2e-2 of the peak; on the
                 megakernel, and with int8_act on the layer scan
- 24. check_fsm  the constrained CoT on the small LM of phase 23 over a
+ 25. check_fsm  the constrained CoT on the small LM of phase 24 over a
                 4096-piece demo vocabulary (caption budget 24), user metadata
                 {} and {bpm 100, duration 120}: greedy device-DFA tokens
                 (serving.lm.generate_with_fsm_device) equal the greedy
                 host-FSM tokens on the card, replay valid and done through
                 MetadataFSM; the DFA without its caption budget and without
                 its exception table (planted faults) each rejected
- 25. full       configs[2] whole: a full-width q4_k engine and the 0.6B q8_0 LM
+ 26. full       configs[2] whole: a full-width q4_k engine and the 0.6B q8_0 LM
                 (int8 KV) through inference.generate_music with
                 tools/bench_full_pipeline.py's request (120 s, bpm 100, 64
                 style tokens of default_rng(0), 256 lyric tokens of
@@ -179,7 +194,7 @@ Phases, each announced by a timestamped line:
                 then the plain request with a random codec (conv_v1): it
                 becomes a cover of the LM codes' hints [1, 3000, 64], and
                 understand_audio of the 60 s source (300 codes, 64 tokens)
- 26. server     phase full's engine (its DiT tree kept unstacked) saved with
+ 27. server     phase full's engine (its DiT tree kept unstacked) saved with
                 loader.save_params and read back through
                 serving.launch.build_engine; the REST server (ApiServer,
                 make_generate_fn, the byte tokenizer, LoRARuntime) on
@@ -204,7 +219,7 @@ Phases, each announced by a timestamped line:
                 card vs CPU within 1.5x the drift of its plain version on the
                 card, never below 2e-3; wall s via HTTP against the direct
                 call, upload decode, FLAC encode, probe and LoRA seconds
- 27. train      a full-width bf16 DiT (RandomInit, per-layer unfused lists)
+ 28. train      a full-width bf16 DiT (RandomInit, per-layer unfused lists)
                 through training.trainer.Trainer on a numpy batch of 2 (10 s,
                 250 frames; 320 condition tokens; item 2's last 50 frames out
                 of the loss): 5 LoRA steps (rank 16, alpha 16), 5 LoKr steps
@@ -215,7 +230,7 @@ Phases, each announced by a timestamped line:
                 the LoRA state checkpointed and resumed into a fresh Trainer
                 bit for bit, then one step from each with the same draws,
                 bit-equal
- 28. train_check a small bf16 DiT (phase output's width), 3 LoRA and 2 full
+ 29. train_check a small bf16 DiT (phase output's width), 3 LoRA and 2 full
                 steps on the card and on the CPU with the same draws: losses,
                 the gradients and the trained trees within TRAIN_REL; rows 7
                 and 8 inside vae_resunit.KernelGrad at the 10 s decode's
@@ -224,7 +239,7 @@ Phases, each announced by a timestamped line:
                 through the plain version on the card; a backward without the
                 snake's sin^2 term, and the single-pass TF32 kernel as the
                 forward, each rejected at each shape
- 29. train_server phase full's engine behind the REST server with both
+ 30. train_server phase full's engine behind the REST server with both
                 managers (127.0.0.1, port 0): /v1/dataset/scan and
                 /v1/dataset/build over two numpy WAVs (20 s and 30 s, 48 kHz
                 stereo, default_rng(4), auto_label off) polled to completed;
@@ -235,13 +250,13 @@ Phases, each announced by a timestamped line:
                 adapter registered and activated through /v1/lora (the audio
                 moves) and deactivated (the base's int16 bit for bit); build,
                 train and activation seconds
- 30. cli        python -m acestep_tpu_torch.cli --pipeline-style-lyric
+ 31. cli        python -m acestep_tpu_torch.cli --pipeline-style-lyric
                 --audio-seconds 10 in a subprocess on the card: rc 0, the JSON
                 line parses, the WAV holds 480000 frames
- 31. recheck_full the kernel shapes those requests launched, as phase 22
+ 32. recheck_full the kernel shapes those requests launched, as phase 23
                 (row 11 at the +think CoT's and the candidates' cache
                 lengths), and those of the served jobs and the dataset build
- 32. timing     kernel, plain-version and library-call times at the served
+ 33. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
@@ -1316,13 +1331,19 @@ def segments_vs_one_pass(engine, res, label: str) -> None:
 
 
 def gate(ref, got):
-    """(cosine, SNR dB) of ``got`` against ``ref`` (the Q8_0 gate's metrics)."""
+    """(cosine, SNR dB) of ``got`` against ``ref``: the Q8_0 gate's metrics, from
+    the port's eval_metrics, once the two are of one shape and the reference
+    is not silent (eval_metrics would cut the longer one and call two silent
+    signals equal)."""
     import numpy as np
 
-    ref, got = ref.ravel().astype(np.float64), got.ravel().astype(np.float64)
-    cos = float(ref @ got / (np.linalg.norm(ref) * np.linalg.norm(got)))
-    snr = float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-30)))
-    return cos, snr
+    from acestep_tpu_torch import eval_metrics
+
+    require(ref.shape == got.shape, f"gate: the output's shape {got.shape} is not the "
+            f"reference's {ref.shape}")
+    ref, got = ref.ravel(), got.ravel()
+    require(bool(np.any(ref != 0)), "gate: the reference is all zeros")
+    return eval_metrics.cosine(ref, got), eval_metrics.snr_db(ref, got)
 
 
 
@@ -2894,6 +2915,333 @@ def cli_run(work):
 
 
 # ---------------------------------------------------------------------------
+# the checkpoint converter
+# ---------------------------------------------------------------------------
+
+def _host(t):
+    """A tensor on the host as numpy, bf16 as its raw bits (uint16)."""
+    import torch
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view("<u2")
+    return t.cpu().numpy()
+
+
+class RefWriter:
+    """Tensors under the reference's names and torch layouts: the reference
+    importers' transforms (acestep_tpu_torch/loader.py) inverted."""
+
+    def __init__(self):
+        self.tensors, self.dtype_map = {}, {}
+
+    def put(self, name, t):
+        import torch
+
+        self.tensors[name] = _host(t)
+        if t.dtype == torch.bfloat16:
+            self.dtype_map[name] = "BF16"
+
+    def lin(self, name, p):                 # kernel [in, out] -> weight [out, in]
+        self.put(name + ".weight", p["kernel"].t())
+        if "bias" in p:
+            self.put(name + ".bias", p["bias"])
+
+    def attn(self, pre, p):
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            self.lin(pre + n, p[n])
+        self.put(pre + "q_norm.weight", p["q_norm"])
+        self.put(pre + "k_norm.weight", p["k_norm"])
+
+    def mlp(self, pre, p):
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            self.lin(pre + n, p[n])
+
+    def block(self, pre, p):
+        """A pre-norm transformer layer: the DiT's encoder layers nest their
+        attention and MLP (``self_attn`` / ``mlp``), Qwen3's keep them flat."""
+        self.put(pre + "input_layernorm.weight", p["input_norm"])
+        self.attn(pre + "self_attn.", p.get("self_attn", p))
+        self.put(pre + "post_attention_layernorm.weight", p["post_norm"])
+        self.mlp(pre + "mlp.", p.get("mlp", p))
+
+    def conv(self, name, p, transposed=False, with_bias=True):
+        """[k, in, out] -> torch [out, in, k] (a transposed conv: reversed taps,
+        [in, out, k]) as weight_v plus weight_g = ||v|| over dims 1-2 of each
+        dim-0 slice (f64, rounded to f32), as the published Oobleck ships them."""
+        import numpy as np
+
+        w = p["w"]
+        v = _host(w.flip(0).permute(1, 2, 0) if transposed else w.permute(2, 1, 0))
+        g = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True))
+        self.tensors[name + ".weight_v"] = v
+        self.tensors[name + ".weight_g"] = g.astype(np.float32)
+        if with_bias and "b" in p:
+            self.put(name + ".bias", p["b"])
+
+    def snake(self, name, p):
+        self.put(name + ".alpha", p["alpha"].reshape(1, -1, 1))
+        self.put(name + ".beta", p["beta"].reshape(1, -1, 1))
+
+    def res(self, name, p):
+        self.snake(name + ".snake1", p["snake1"])
+        self.conv(name + ".conv1", p["conv1"])
+        self.snake(name + ".snake2", p["snake2"])
+        self.conv(name + ".conv2", p["conv2"])
+
+    def write(self, directory, cfg):
+        from acestep_tpu_torch.utils.safetensors_io import save_safetensors
+
+        os.makedirs(directory)
+        path = os.path.join(directory, "model.safetensors")
+        save_safetensors(path, self.tensors, None, self.dtype_map)
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        return os.path.getsize(path)
+
+
+def dit_reference(tree, cfg) -> RefWriter:
+    """The DiT (per-layer lists) under the reference's ``decoder.*`` /
+    ``encoder.*`` names: patchify conv [H, C, p], unpatchify conv [H, A, p]."""
+    w, h, ps = RefWriter(), cfg.hidden_size, cfg.patch_size
+    w.put("decoder.proj_in.1.weight",
+          tree["proj_in"]["kernel"].reshape(ps, cfg.in_channels, h).permute(2, 1, 0))
+    w.put("decoder.proj_in.1.bias", tree["proj_in"]["bias"])
+    w.put("decoder.proj_out.1.weight", tree["proj_out"]["kernel"].reshape(
+        h, ps, cfg.audio_acoustic_hidden_dim).permute(0, 2, 1))
+    w.put("decoder.proj_out.1.bias", tree["proj_out"]["bias"])
+    for te in ("time_embed", "time_embed_r"):
+        for n in ("linear_1", "linear_2", "time_proj"):
+            w.lin(f"decoder.{te}.{n}", tree[te][n])
+    w.lin("decoder.condition_embedder", tree["condition_embedder"])
+    w.put("decoder.norm_out.weight", tree["norm_out"])
+    w.put("decoder.scale_shift_table", tree["out_scale_shift_table"].reshape(1, 2, h))
+    for i, layer in enumerate(tree["layers"]):
+        p = f"decoder.layers.{i}."
+        for n in ("self_attn", "cross_attn"):
+            w.put(p + n + "_norm.weight", layer[n + "_norm"])
+            w.attn(p + n + ".", layer[n])
+        w.put(p + "mlp_norm.weight", layer["mlp_norm"])
+        w.mlp(p + "mlp.", layer["mlp"])
+        w.put(p + "scale_shift_table", layer["scale_shift_table"].reshape(1, 6, h))
+    w.lin("encoder.text_projector", tree["text_projector"])
+    for enc in ("lyric", "timbre"):
+        w.lin(f"encoder.{enc}_encoder.embed_tokens", tree[f"{enc}_embed"])
+        for i, layer in enumerate(tree[f"{enc}_layers"]):
+            w.block(f"encoder.{enc}_encoder.layers.{i}.", layer)
+        w.put(f"encoder.{enc}_encoder.norm.weight", tree[f"{enc}_norm"])
+    w.put("encoder.timbre_encoder.special_token", tree["timbre_special_token"].reshape(1, 1, h))
+    return w
+
+
+def qwen_reference(tree) -> RefWriter:
+    """A Qwen3 stack (per-layer list) under the HF names (tied embeddings)."""
+    w = RefWriter()
+    w.put("model.embed_tokens.weight", tree["embed_tokens"])
+    for i, layer in enumerate(tree["layers"]):
+        w.block(f"model.layers.{i}.", layer)
+    w.put("model.norm.weight", tree["norm"])
+    return w
+
+
+def vae_reference(tree, cfg) -> RefWriter:
+    """The Oobleck VAE under the diffusers names, every conv weight-normed."""
+    w = RefWriter()
+    enc, dec = tree["encoder"], tree["decoder"]
+    w.conv("encoder.conv1", enc["conv1"])
+    for i, b in enumerate(enc["blocks"]):
+        p = f"encoder.block.{i}"
+        for j in (1, 2, 3):
+            w.res(f"{p}.res_unit{j}", b[f"res{j}"])
+        w.snake(p + ".snake1", b["snake1"])
+        w.conv(p + ".conv1", b["conv1"])
+    w.snake("encoder.snake1", enc["snake1"])
+    w.conv("encoder.conv2", enc["conv2"])
+    w.conv("decoder.conv1", dec["conv1"])
+    for i, b in enumerate(dec["blocks"]):
+        p = f"decoder.block.{i}"
+        w.snake(p + ".snake1", b["snake1"])
+        w.conv(p + ".conv_t1", b["conv_t1"], transposed=True)
+        for j in (1, 2, 3):
+            w.res(f"{p}.res_unit{j}", b[f"res{j}"])
+    w.snake("decoder.snake1", dec["snake1"])
+    w.conv("decoder.conv2", dec["conv2"], with_bias=False)
+    return w
+
+
+def tree_mismatches(got, want):
+    """Leaf names where ``got`` is not ``want`` bit for bit (dtype, format,
+    every field), and names only one tree has."""
+    import torch
+
+    from acestep_tpu_torch.quant import QuantTensor
+    from acestep_tpu_torch.weights import flatten
+
+    g, w = flatten(got), flatten(want)
+    bad = sorted(set(g) ^ set(w))
+    for name in sorted(set(g) & set(w)):
+        a, b = g[name], w[name]
+        if isinstance(b, QuantTensor):
+            fa, fb = (a.fields() if isinstance(a, QuantTensor) and a.fmt == b.fmt else {},
+                      b.fields())
+            ok = fa.keys() == fb.keys() and all(
+                fa[f].dtype == t.dtype and torch.equal(fa[f], t.to(fa[f].device))
+                for f, t in fb.items())
+        else:
+            ok = (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+                  and torch.equal(a, b.to(a.device)))
+        if not ok:
+            bad.append(name)
+    return bad
+
+
+def vae_gap(got, want):
+    """(largest f32 ulp distance, largest relative gap) between the converted
+    VAE's conv weights and the drawn ones; every other leaf must be equal."""
+    import torch
+
+    from acestep_tpu_torch.weights import flatten
+
+    g, w = flatten(got), flatten(want)
+    require(g.keys() == w.keys(), f"VAE leaves differ: {sorted(set(g) ^ set(w))[:6]}")
+    ulps, rel = 0, 0.0
+    for name, b in w.items():
+        a = g[name].to(b.device)
+        if not name.endswith("/w"):
+            require(torch.equal(a, b), f"VAE leaf {name} changed in the conversion")
+            continue
+        require(bool((torch.sign(a) == torch.sign(b)).all()), f"VAE {name}: a sign changed")
+        ulps = max(ulps, int((a.view(torch.int32).long() - b.view(torch.int32).long())
+                             .abs().max()))
+        rel = max(rel, float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()))
+    return ulps, rel
+
+
+def convert_phase(dit_cfg, vae_cfg, text_cfg, style, lyric, need, dev="cuda"):
+    """Phase convert: full-width weights drawn on the card (``dev``), written
+    in the reference's layout, converted on the host, and served through
+    build_engine against an engine of the same weights quantized in memory on
+    the card.  Returns the request's (launches, shapes)."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import convert_checkpoint, loader, pipeline, roofline
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+    from acestep_tpu_torch.quant.convert import importer_policy, quantize_tree
+    from acestep_tpu_torch.serving import launch
+    from acestep_tpu_torch.weights import flatten
+
+    work = tempfile.TemporaryDirectory(prefix="acestep_convert_")
+    free = shutil.disk_usage(work.name).free
+    log(f"free disk under {work.name}: {free / 2**30:.1f} GiB")
+    t = time.perf_counter()
+    init = RandomInit(torch.device(dev), seed=21, quant=None)
+    dit_tree = list_tree(init, dit_cfg)
+    text_tree = init.qwen(text_cfg)
+    text_tree["layers"] = unstack_layer_params(text_tree["layers"])
+    vae_tree = init.vae(vae_cfg)
+    sync()
+    counts = {k: sum(x.numel() for x in flatten(v).values())
+              for k, v in (("dit", dit_tree), ("text_encoder", text_tree), ("vae", vae_tree))}
+    log(f"drawn on the card in {time.perf_counter() - t:.1f} s: bf16 DiT {counts['dit']:,}, "
+        f"bf16 text encoder {counts['text_encoder']:,}, f32 VAE {counts['vae']:,} parameters")
+
+    ref = os.path.join(work.name, "reference")
+    srcs, t = {}, time.perf_counter()
+    for name, writer, cfg in (("dit", dit_reference(dit_tree, dit_cfg), dit_cfg),
+                              ("text_encoder", qwen_reference(text_tree), text_cfg),
+                              ("vae", vae_reference(vae_tree, vae_cfg), vae_cfg)):
+        srcs[name] = os.path.join(ref, name)
+        size = writer.write(srcs[name], cfg)
+        log(f"  {name}: {len(writer.tensors)} reference tensors, {size / 2**30:.3f} GiB")
+        del writer
+    log(f"reference-layout checkpoints written in {time.perf_counter() - t:.1f} s")
+
+    out = os.path.join(work.name, "converted")
+    argv = ["--dit", srcs["dit"], "--vae", srcs["vae"], "--text", srcs["text_encoder"],
+            "--out", out, "--quant", "q4_k"]
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert_checkpoint.main(argv)
+    wall = time.perf_counter() - t
+    require(rc == 0, f"convert_checkpoint exited {rc}")
+    shutil.rmtree(ref)
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    sizes = {n: os.path.getsize(os.path.join(out, n)) for n in sorted(os.listdir(out))}
+    log(f"converted on the host (native quantizers) in {wall:.3f} s; per component (s): "
+        + json.dumps({k: v["seconds"] for k, v in manifest["components"].items()})
+        + f"; {sum(sizes.values()) / 2**30:.3f} GiB written: " + json.dumps(sizes))
+
+    t = time.perf_counter()
+    engine, loaded_dit = launch.build_engine(out, device=dev)
+    sync()
+    log(f"build_engine of the converted directory on the card in {time.perf_counter() - t:.1f} s")
+    loaded_text = loader.load_params(os.path.join(out, "text_encoder"), device=dev)
+    loaded_vae = loader.load_params(os.path.join(out, "vae"), device=dev)
+    work.cleanup()
+    want_dit = quantize_tree(dit_tree, "q4_k", importer_policy)
+    want_text = quantize_tree(text_tree, "q4_k", importer_policy)
+    for what, got, want in (("DiT", loaded_dit, want_dit), ("text encoder", loaded_text,
+                                                           want_text)):
+        bad = tree_mismatches(got, want)
+        require(not bad, f"converted {what} leaves differ from quantize_tree's: {bad[:6]}")
+        fmts = sorted({leaf.fmt for leaf in flatten(got).values() if hasattr(leaf, "fmt")})
+        log(f"converted {what}: every leaf equal bit for bit to the drawn tree quantized in "
+            f"memory on the card (quant.convert.quantize_tree); formats {fmts}")
+    ulps, rel = vae_gap(loaded_vae, vae_tree)
+    log(f"converted VAE (weight norm folded in f64): conv weights within {ulps} f32 ulps of "
+        f"the drawn ones, largest relative gap {rel:.3e}; every other leaf equal")
+    require(ulps <= 4, f"the VAE fold moved a weight by {ulps} ulps")
+    del loaded_dit, loaded_text, loaded_vae, dit_tree, text_tree
+
+    mem_engine = pipeline.AceStepEngine(want_dit, dit_cfg, vae_tree, vae_cfg, want_text,
+                                        text_cfg, device=dev)
+    del want_dit, want_text
+    frames = pipeline.bucket_frames(pipeline.frames_for_duration(60.0))
+    noise = torch.randn((1, frames, dit_cfg.audio_acoustic_hidden_dim),
+                        generator=torch.Generator(device=dev).manual_seed(22), device=dev)
+    req = pipeline.GenerationRequest(duration_s=60.0, style_token_ids=style,
+                                     lyric_token_ids=lyric, seeds=[1])
+    reset_counts()
+    res = engine.generate(req, noise=noise)
+    served = snapshot_counts()
+    log("converted engine, 60 s q4_k request: time_costs "
+        + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
+    log("converted engine, 60 s q4_k request launches: "
+        + json.dumps({k: v for k, v in served[0].items() if v}))
+    require(all(served[0][n] > 0 for n in need),
+            f"the converted engine's request missed a kernel of {need}")
+    ref_res = mem_engine.generate(req, noise=noise)
+    check_audio([res, ref_res], 1500 * vae_cfg.hop_length)
+    same = np.array_equal(res.latents, ref_res.latents)
+    log(f"latents of the converted engine and of the in-memory one: "
+        f"{'equal bit for bit' if same else 'DIFFERENT'}")
+    require(same, "the converted engine's latents differ from the in-memory engine's")
+    cos, snr = gate(ref_res.audio_i16, res.audio_i16)
+    log(f"int16 audio, converted vs in-memory engine (eval_metrics): cosine {cos:.9f} "
+        f"(>= 0.999), SNR {snr:.2f} dB (>= 26)")
+    require(cos >= 0.999 and snr >= 26.0, "the converted engine's audio misses the Q8_0 gate")
+
+    chip = roofline.detect_chip()
+    step_s = res.time_costs["diffusion_per_step_time_cost"]
+    point = roofline.RooflinePoint(
+        phase="DiT step, 60 s q4_k, converted engine", time_s=step_s,
+        bytes_=roofline.dit_step_weight_bytes(engine.dit_params),
+        flops=roofline.dit_step_flops(dit_cfg, frames, style.shape[1] + lyric.shape[1]),
+        chip=chip)
+    print("roofline " + json.dumps({**point.summary(), "weight_bytes": point.bytes_,
+                                    "flops": point.flops}), flush=True)
+    del engine, mem_engine
+    free_engine()
+    return served
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -3223,6 +3571,12 @@ def run() -> int:
     log(f"q4_k checkpoint ({size} bytes) saved, read back through build_engine: int16 "
         f"output {'identical' if same else 'DIFFERENT'}")
     require(same, "the checkpoint round trip changed the output")
+    del src, loaded
+    free_engine()
+
+    phase("convert")
+    served["60s q4_k converted"] = convert_phase(dit_cfg, vae_cfg, text_cfg, style, lyric,
+                                                 [names["q4_k"], names["q8_0"], unit, trio])
 
     phase("recheck")
     for key, (_, shapes) in served.items():
