@@ -20,6 +20,14 @@ the engine runs: the card by default.  The weight format is --quant, else
 the layered settings' (``settings.Settings``: ACESTEP_TPU_QUANT, a ``.env``
 file); the engine's switches come from there too (ACESTEP_TPU_DIT_MEGA,
 ACESTEP_TPU_INT8_ACT) and pass to the engine builders as arguments.
+
+Under ``torchrun`` (WORLD_SIZE set) the pipeline modes serve from a (dp, tp)
+mesh over the ranks, one card a rank (``parallel.distributed``; dp and tp
+from ``settings.Settings.load(n_devices=, local_devices=)``: the tier's tp
+clamped to one host's ranks, dp the rest):
+every rank runs the same request and rank 0 writes the file and prints:
+
+    torchrun --nproc-per-node 2 -m acestep_tpu_torch.cli --pipeline-style-lyric --out x.wav
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from acestep_tpu_torch import pipeline
+from acestep_tpu_torch.parallel import distributed, make_mesh
 from acestep_tpu_torch.settings import Settings
 
 
@@ -70,16 +79,27 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _engine(args, settings: Settings):
+def _engine(args, settings: Settings, mesh=None):
+    # under a mesh each rank's device is the mesh's
+    kw = dict(device=args.device) if mesh is None else dict(mesh=mesh)
     if args.checkpoint:
         from acestep_tpu_torch.serving.launch import build_engine
 
-        engine, _ = build_engine(args.checkpoint, settings.quant, device=args.device,
-                                 dit_mega=settings.dit_mega, int8_act=settings.int8_act)
+        engine, _ = build_engine(args.checkpoint, settings.quant, dit_mega=settings.dit_mega,
+                                 int8_act=settings.int8_act, **kw)
         return engine
     quant = None if settings.quant == "bf16" else settings.quant
-    return pipeline.build_random_engine(device=args.device, quant=quant, seed=0,
-                                        dit_mega=settings.dit_mega, int8_act=settings.int8_act)
+    return pipeline.build_random_engine(quant=quant, seed=0, dit_mega=settings.dit_mega,
+                                        int8_act=settings.int8_act, **kw)
+
+
+def _mesh(args, settings: Settings):
+    """The (dp, tp) mesh under torchrun, else None (one process)."""
+    if not distributed.initialize():
+        return None
+    if args.text_encoder or args.vae or args.dit:
+        raise SystemExit("under torchrun the CLI runs the pipeline modes")
+    return make_mesh(dp=settings.dp, tp=settings.tp)
 
 
 def _sync(engine) -> None:
@@ -92,7 +112,10 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.wizard:
         return run_wizard(args)
-    settings = Settings.load(quant=args.quant)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    settings = Settings.load(quant=args.quant, n_devices=world if world > 1 else None,
+                             local_devices=int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    mesh = _mesh(args, settings) if world > 1 else None
 
     from acestep_tpu_torch.models import dit as dit_mod
     from acestep_tpu_torch.models import qwen
@@ -100,7 +123,7 @@ def main(argv=None) -> int:
     from acestep_tpu_torch.utils.audio import write_wav
 
     t0 = time.time()
-    engine = _engine(args, settings)
+    engine = _engine(args, settings, mesh)
     _sync(engine)
     print(f"load: {time.time() - t0:.2f}s (device={engine.device}, quant={settings.quant})",
           file=sys.stderr)
@@ -172,6 +195,11 @@ def main(argv=None) -> int:
             req.refer_latents = rng.standard_normal(
                 (1, n, 750, engine.dit_cfg.timbre_hidden_dim)).astype(np.float32)
     res = engine.generate(req)
+    if mesh is not None:
+        primary = distributed.is_primary()
+        torch.distributed.destroy_process_group()
+        if not primary:
+            return 0        # every rank computed the same result; rank 0 writes it
     write_wav(args.out, [s[0] for s in res.pcm16_segments()], res.sample_rate)
     print(json.dumps({
         "mode": "pipeline",

@@ -48,7 +48,7 @@ from acestep_tpu_torch.constants import (
 )
 from acestep_tpu_torch.models import qwen
 from acestep_tpu_torch.ops.qlinear import precast_quant_scales
-from acestep_tpu_torch.pipeline import resolve_device
+from acestep_tpu_torch.pipeline import fold_seed, resolve_device
 from acestep_tpu_torch.serving import kv_cache as kvc
 from acestep_tpu_torch.serving import lm as lm_serving
 from acestep_tpu_torch.serving.lm import SamplingParams
@@ -320,8 +320,7 @@ def _suffix_bucket(n: int) -> int:
 def _seeded_generator(seed: int, stream: int, device) -> torch.Generator:
     """An independent torch.Generator on ``device`` for stream ``stream`` of
     ``seed``."""
-    state = np.random.SeedSequence([int(seed), int(stream)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) & ((1 << 63) - 1))
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, stream))
 
 
 class LMPipeline:
@@ -346,13 +345,24 @@ class LMPipeline:
                  kv_dtype: str = "int8", decode_mega: str = "auto",
                  decode_attn: str = "auto", int8_act: bool = False,
                  reduced_codes_head: bool = True, device_fsm: bool = True,
-                 genres_file: Optional[str] = None):
-        self.device = resolve_device(device)
+                 genres_file: Optional[str] = None, mesh=None):
+        self.device = resolve_device(device, mesh)
         params = tree_to(params, self.device)
         if isinstance(params.get("layers"), list):
             params = qwen.stack_params(params)
         params = lm_serving.ensure_quantized_head(params, lm_head_quant)
-        if lm_fuse:
+        # tensor parallelism (lm_pipeline.py:355-375): rank-major fused, sharded
+        # params and the rank's config and group for every serving call
+        self.tp_ctx = None
+        self.run_cfg, self._tp = cfg, {}
+        if mesh is not None:
+            from acestep_tpu_torch.parallel.lm_tp import LMTPContext
+
+            self.tp_ctx = LMTPContext(params, cfg, mesh, reduced_codes_head=reduced_codes_head,
+                                      decode_attn=decode_attn, int8_act=int8_act)
+            params = self.tp_ctx.params
+            self.run_cfg, self._tp = self.tp_ctx.cfg_l, {"group": self.tp_ctx.group}
+        elif lm_fuse:
             params = lm_serving.fuse_serving_params(params)
         self.params = precast_quant_scales(params)
         self.cfg = cfg
@@ -396,9 +406,9 @@ class LMPipeline:
             ukw = dict(uncond_prompt_ids=self._ids([self._bucket(uids)]),
                        uncond_prompt_lengths=self._i32([min(len(uids), 4096)]))
         tokens, n_gen = lm_serving.generate(
-            self.params, self.cfg, self._ids([self._bucket(ids)]),
+            self.params, self.run_cfg, self._ids([self._bucket(ids)]),
             self._i32([min(len(ids), 4096)]), gen, sp, kv_dtype=self.kv_dtype, **ukw,
-            **self.knobs)
+            **self.knobs, **self._tp_kw(sp))
         n = int(n_gen[0])
         return tokens[0, :n].cpu().numpy(), n
 
@@ -417,16 +427,18 @@ class LMPipeline:
             rest = ids[n0:]
             bucket = _suffix_bucket(len(rest))
             logits, cache = lm_serving.extend_prefill(
-                self.params, self.cfg, cache, self._ids([rest + [0] * (bucket - len(rest))]),
-                self._i32([n0]), self._i32([len(rest)]), int8_act=self.knobs["int8_act"])
+                self.params, self.run_cfg, cache,
+                self._ids([rest + [0] * (bucket - len(rest))]), self._i32([n0]),
+                self._i32([len(rest)]), int8_act=self.knobs["int8_act"], **self._tp)
         else:
             prompt_ids = self._ids([self._bucket(ids)])
             total_len = kvc.round_len(max(total_len, prompt_ids.shape[1] + 1))
-            cache = kvc.init_cache(self.cfg.num_hidden_layers, 1, self.cfg.num_key_value_heads,
-                                   total_len, self.cfg.head_dim, self.kv_dtype, self.device)
-            logits, cache = lm_serving.prefill(self.params, self.cfg, prompt_ids,
+            cache = kvc.init_cache(self.cfg.num_hidden_layers, 1,
+                                   self.run_cfg.num_key_value_heads, total_len,
+                                   self.cfg.head_dim, self.kv_dtype, self.device)
+            logits, cache = lm_serving.prefill(self.params, self.run_cfg, prompt_ids,
                                                self._i32([len(ids)]), cache,
-                                               int8_act=self.knobs["int8_act"])
+                                               int8_act=self.knobs["int8_act"], **self._tp)
         if insert:
             self.prefix_cache.insert(ids, cache, logits)
         return cache, logits
@@ -440,10 +452,17 @@ class LMPipeline:
             ukw = dict(ucache=kvc.broadcast_cache(ucache, batch),
                        ulogits=ulogits.expand(batch, -1))
         tokens, n_gen = lm_serving.decode_from_state(
-            self.params, self.cfg, kvc.broadcast_cache(cache, batch),
+            self.params, self.run_cfg, kvc.broadcast_cache(cache, batch),
             logits.expand(batch, -1), gen, sp, min_tokens_arr=min_arr,
-            forced_eos_arr=forced_arr, **ukw, **self.knobs)
+            forced_eos_arr=forced_arr, **ukw, **self.knobs, **self._tp_kw(sp))
         return tokens.cpu().numpy(), n_gen.cpu().numpy()
+
+    def _tp_kw(self, sp: SamplingParams) -> Dict[str, Any]:
+        """The decode loop's tensor-parallel keywords: the group and this
+        rank's shard of the reduced codes head ({} unmeshed)."""
+        if self.tp_ctx is None:
+            return {}
+        return dict(self._tp, head_red_override=self.tp_ctx.head_red(sp))
 
     @torch.no_grad()
     def generate_with_stop_condition(
@@ -576,7 +595,10 @@ class LMPipeline:
         vocab_strs = self.vocab_strs()
         knobs = dict(kv_dtype=self.kv_dtype, decode_mega=self.knobs["decode_mega"],
                      decode_attn=self.knobs["decode_attn"], int8_act=self.knobs["int8_act"])
-        dfa = self.compiled_dfa(user_metadata)[0] if self.device_fsm else None
+        # under TP the host FSM runs against the TP prefill and decode step
+        # (the JAX package's rule, lm_pipeline.py:681)
+        dfa = (self.compiled_dfa(user_metadata)[0]
+               if self.device_fsm and self.tp_ctx is None else None)
         if dfa is not None:
             cot_ids, text = lm_serving.generate_with_fsm_device(
                 self.params, self.cfg, ids, dfa, vocab_strs, gen, temperature=temperature,
@@ -585,8 +607,8 @@ class LMPipeline:
         else:
             fsm = constrained.MetadataFSM(self._fsm_config(), user_metadata=user_metadata or {})
             cot_ids, text = lm_serving.generate_with_fsm(
-                self.params, self.cfg, ids, fsm, vocab_strs, gen, temperature=temperature,
-                max_new_tokens=max_cot_tokens, **knobs)
+                self.params, self.run_cfg, ids, fsm, vocab_strs, gen, temperature=temperature,
+                max_new_tokens=max_cot_tokens, **knobs, **self._tp)
             route = "host_fsm"
         return f"<think>\n{text.strip()}\n</think>", route, cot_ids
 

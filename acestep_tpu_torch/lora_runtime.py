@@ -7,7 +7,9 @@ files hold it (adapters train against the per-layer 2-D kernels).  A rebuild
 merges the active adapters into it (``training.lora.apply_lora``; quantized
 kernels are requantized in their format on their device) and hands the engine
 the layout ``AceStepEngine.__init__`` builds:
-``precast_quant_scales(fuse_params(stack_params(tree)))``.  Deactivating every
+``precast_quant_scales(fuse_params(stack_params(tree)))``, or under a
+tensor-parallel mesh this rank's shards of the unfused tree
+(lora_runtime.py:108-111).  Deactivating every
 adapter rebuilds from the pristine tree, so the engine's weights, and its
 output, are the base's bit for bit.
 
@@ -112,5 +114,12 @@ class LoRARuntime:
         from acestep_tpu_torch.models import dit
         from acestep_tpu_torch.ops.qlinear import precast_quant_scales
 
-        self.engine.dit_params = precast_quant_scales(
-            dit.fuse_params(dit.stack_params(self.merged_params())))
+        stacked = dit.stack_params(self.merged_params())
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is None or mesh.tp == 1:
+            stacked = dit.fuse_params(stacked)
+        self.engine.dit_params = precast_quant_scales(stacked)
+        if mesh is not None:
+            from acestep_tpu_torch.parallel.sharding import shard_params
+
+            self.engine.dit_params = shard_params(self.engine.dit_params, mesh)

@@ -19,6 +19,11 @@ engine does; every linear may carry a quantized weight.  The encoder stacks
 ``iter_layers`` walks (the JAX ``stack_params`` stacks them for its scan; the
 function is the same).
 
+Under tensor parallelism (``group``: this rank's tp group, parallel/tp.py)
+the blocks run on the rank's column shards of q/k/v and gate/up with the
+local head counts, and o_proj / down_proj are row-parallel: their partial
+products are summed over the group (dit.py:197-339).
+
 Two opt-in switches of :func:`forward` stand for the JAX package's
 environment knobs (dit.py:583-607, qmm.py:348-367):
   * ``dit_mega`` (``ACESTEP_TPU_DIT_MEGA=1``): at batch 1 with no
@@ -57,6 +62,7 @@ from acestep_tpu_torch.ops import (
     use_blocked_attention,
 )
 from acestep_tpu_torch.ops.qlinear import concat_weights_n
+from acestep_tpu_torch.parallel.collective_matmul import row_parallel_linear
 
 Params = Dict[str, Any]
 
@@ -71,8 +77,11 @@ def _silu_as(x: torch.Tensor, dtype) -> torch.Tensor:
 # building blocks
 # ---------------------------------------------------------------------------
 
-def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn):
-    """``attn_fn(q, k, v)`` carries the masking (:func:`_make_self_attn_fns`)."""
+def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn, group=None):
+    """``attn_fn(q, k, v)`` carries the masking (:func:`_make_self_attn_fns`).
+    Under tensor parallelism (``group``) q/k/v are column shards, ``cfg``
+    carries the local head counts (``parallel.tp.local_cfg``) and o_proj is
+    row-parallel (dit.py:197-230)."""
     b, l, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     if "qkv_proj" in p:
@@ -89,7 +98,7 @@ def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn):
     v = v.transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
     out = attn_fn(q, k, v).transpose(1, 2).reshape(b, l, nh * hd)
-    return linear(out, p["o_proj"]["kernel"])
+    return row_parallel_linear(out, p["o_proj"]["kernel"], group)
 
 
 def _make_self_attn_fns(cfg: DiTConfig, seq_len: int, kv_valid, device):
@@ -120,17 +129,17 @@ def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor):
     return k, v
 
 
-def _cross_attention(p: Params, cfg: DiTConfig, x, kv, mask):
+def _cross_attention(p: Params, cfg: DiTConfig, x, kv, mask, group=None):
     b, l, _ = x.shape
     hd, nh = cfg.head_dim, cfg.num_attention_heads
     q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
     q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
     k, v = kv
     out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
-    return linear(out, p["o_proj"]["kernel"])
+    return row_parallel_linear(out, p["o_proj"]["kernel"], group)
 
 
-def _mlp(p: Params, x):
+def _mlp(p: Params, x, group=None):
     if "gateup_proj" in p:
         gu = linear(x, p["gateup_proj"]["kernel"])
         inter = gu.shape[-1] // 2
@@ -138,7 +147,7 @@ def _mlp(p: Params, x):
     else:
         gate = linear(x, p["gate_proj"]["kernel"])
         up = linear(x, p["up_proj"]["kernel"])
-    return linear(_silu_as(gate, x.dtype) * up, p["down_proj"]["kernel"])
+    return row_parallel_linear(_silu_as(gate, x.dtype) * up, p["down_proj"]["kernel"], group)
 
 
 def _timestep_embed(p: Params, t: torch.Tensor, dtype, int8_act: bool = False):
@@ -234,11 +243,14 @@ def forward(
     dit_mega: bool = False,
     int8_act: bool = False,
     cross_kv_stacked: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    group=None,
 ) -> torch.Tensor:
     """Predict the velocity v_t [B, T, 64]; ``cross_kv_cache`` comes from
     :func:`compute_all_cross_kv` on :func:`compute_condition`'s output, and
     ``cross_kv_stacked`` (optional) from :func:`stack_cross_kv` on it.
-    ``dit_mega`` / ``int8_act``: the module docstring's switches."""
+    ``dit_mega`` / ``int8_act``: the module docstring's switches.  ``group``:
+    this rank's tp group under tensor parallelism (params and ``cfg`` local:
+    ``parallel.tp``); the megakernel stays off then, as in dit.py:589."""
     b, t_len, _ = hidden_states.shape
     patch = cfg.patch_size
     dtype = hidden_states.dtype
@@ -262,7 +274,8 @@ def forward(
     lc = cross_kv_cache[0][0].shape[2] if dit_mega else 0
     # the Euler-step megakernel (dit.py:583-607): batch 1, no self-attention
     # mask, and the kernel's gate; anything else keeps the layer path below
-    if dit_mega and b == 1 and attn_mask is None and _dit_mega.supported(layers, cfg, b, tp, lc):
+    if (dit_mega and group is None and b == 1 and attn_mask is None
+            and _dit_mega.supported(layers, cfg, b, tp, lc)):
         if encoder_attn_mask is not None:
             encm = torch.where(encoder_attn_mask.bool(), 0.0, _dit_mega.NEG).float()
         else:
@@ -294,14 +307,15 @@ def forward(
         normed = rms_norm(x, p["self_attn_norm"], cfg.rms_norm_eps)
         normed = normed * (1.0 + scale_msa) + shift_msa
         x = x + _self_attention(p["self_attn"], cfg, normed, cos, sin,
-                                attn_sliding if sliding else attn_full) * gate_msa
+                                attn_sliding if sliding else attn_full, group) * gate_msa
 
         normed = rms_norm(x, p["cross_attn_norm"], cfg.rms_norm_eps)
-        x = x + _cross_attention(p["cross_attn"], cfg, normed, cross_kv_cache[li], cross_mask)
+        x = x + _cross_attention(p["cross_attn"], cfg, normed, cross_kv_cache[li], cross_mask,
+                                 group)
 
         normed = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         normed = normed * (1.0 + c_scale) + c_shift
-        x = x + _mlp(p["mlp"], normed) * c_gate
+        x = x + _mlp(p["mlp"], normed, group) * c_gate
 
     return _finalize_output(params, cfg, x, temb, dtype, t_len, patch, int8_act)
 
@@ -324,7 +338,7 @@ def _finalize_output(params, cfg: DiTConfig, x, temb, dtype, t_len: int, patch: 
 # conditioning encoders
 # ---------------------------------------------------------------------------
 
-def _encoder_stack(layers, cfg: DiTConfig, x, valid):
+def _encoder_stack(layers, cfg: DiTConfig, x, valid, group=None):
     l = x.shape[1]
     dtype = x.dtype
     cos, sin = rope_cos_sin(torch.arange(l, device=x.device), cfg.head_dim,
@@ -335,22 +349,23 @@ def _encoder_stack(layers, cfg: DiTConfig, x, valid):
         sliding = i < len(cfg.layer_types) and cfg.layer_types[i] == "sliding_attention"
         xn = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
         x = x + _self_attention(p["self_attn"], cfg, xn, cos, sin,
-                                attn_sliding if sliding else attn_full)
-        x = x + _mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
+                                attn_sliding if sliding else attn_full, group)
+        x = x + _mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps), group)
     return x
 
 
 def lyric_encoder(params: Params, cfg: DiTConfig, lyric_hidden_states,
-                  lyric_mask: Optional[torch.Tensor] = None):
-    """Project + encode lyric token embeddings [B, L, text_hidden] -> [B, L, H]."""
+                  lyric_mask: Optional[torch.Tensor] = None, group=None):
+    """Project + encode lyric token embeddings [B, L, text_hidden] -> [B, L, H]
+    (``group``: tensor parallelism, as :func:`forward`)."""
     p = params["lyric_embed"]
     x = linear(lyric_hidden_states, p["kernel"], p.get("bias"))
-    x = _encoder_stack(params["lyric_layers"], cfg, x, lyric_mask)
+    x = _encoder_stack(params["lyric_layers"], cfg, x, lyric_mask, group)
     return rms_norm(x, params["lyric_norm"], cfg.rms_norm_eps)
 
 
 def timbre_encoder(params: Params, cfg: DiTConfig, refer_latents,
-                   refer_mask: Optional[torch.Tensor] = None):
+                   refer_mask: Optional[torch.Tensor] = None, group=None):
     """Reference-audio latents [B, L, timbre_hidden] -> one timbre token
     [B, 1, H]: a linear, the special token prepended (valid in the mask), the
     encoder stack, the norm, and the first position (dit.py:748-771).  Runs
@@ -363,7 +378,7 @@ def timbre_encoder(params: Params, cfg: DiTConfig, refer_latents,
         x = torch.cat([tok, x], dim=1)
         if refer_mask is not None:
             refer_mask = torch.cat([torch.ones_like(refer_mask[:, :1]), refer_mask], dim=1)
-    x = _encoder_stack(params["timbre_layers"], cfg, x, refer_mask)
+    x = _encoder_stack(params["timbre_layers"], cfg, x, refer_mask, group)
     x = rms_norm(x, params["timbre_norm"], cfg.rms_norm_eps)
     return x[:, :1, :]
 

@@ -26,6 +26,8 @@ from acestep_tpu_torch.ops import (
     silu,
 )
 from acestep_tpu_torch.models.stacking import iter_layers, stack_layer_params
+from acestep_tpu_torch.parallel.collective_matmul import row_parallel_linear
+from acestep_tpu_torch.parallel.distributed import all_gather_cat
 
 Params = Dict[str, Any]
 
@@ -49,7 +51,10 @@ def stack_params(params: Params) -> Params:
     return params
 
 
-def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask):
+def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask, group=None):
+    """GQA self-attention; under tensor parallelism (``group``) q/k/v are
+    column shards with ``cfg``'s local head counts and o_proj is row-parallel
+    (qwen.py:84-113)."""
     b, l, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     if "qkv_proj" in p:              # serving-fused q||k||v (the LM's params)
@@ -66,11 +71,13 @@ def attention_block(p: Params, cfg: QwenConfig, x, cos, sin, mask):
     v = v.transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
     out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
-    return linear(out, p["o_proj"]["kernel"])
+    return row_parallel_linear(out, p["o_proj"]["kernel"], group)
 
 
-def mlp_block(p: Params, x, int8_act: bool = False):
-    """SwiGLU MLP, through the fused gate||up weight when present."""
+def mlp_block(p: Params, x, int8_act: bool = False, group=None):
+    """SwiGLU MLP, through the fused gate||up weight when present.  Under
+    tensor parallelism (``group``) gate/up are column shards and down_proj is
+    row-parallel: one all-reduce a block (qwen.py:116-135)."""
     if "gateup_proj" in p:
         gu = linear(x, p["gateup_proj"]["kernel"], int8_act=int8_act)
         inter = gu.shape[-1] // 2
@@ -79,13 +86,14 @@ def mlp_block(p: Params, x, int8_act: bool = False):
         gate = linear(x, p["gate_proj"]["kernel"], int8_act=int8_act)
         up = linear(x, p["up_proj"]["kernel"], int8_act=int8_act)
     act = silu(gate.float()).to(x.dtype) * up
-    return linear(act, p["down_proj"]["kernel"], int8_act=int8_act)
+    return row_parallel_linear(act, p["down_proj"]["kernel"], group, int8_act)
 
 
 def forward(params: Params, cfg: QwenConfig, token_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None, *, causal: bool = True,
-            final_norm: bool = True) -> torch.Tensor:
-    """Full-sequence forward: token_ids [B, L] -> hidden states [B, L, H]."""
+            final_norm: bool = True, group=None) -> torch.Tensor:
+    """Full-sequence forward: token_ids [B, L] -> hidden states [B, L, H]
+    (``group``: tensor parallelism, as :func:`attention_block`)."""
     b, l = token_ids.shape
     x = embeddings_only(params, token_ids)
     cos, sin = rope_cos_sin(torch.arange(l, device=x.device), cfg.head_dim,
@@ -93,8 +101,8 @@ def forward(params: Params, cfg: QwenConfig, token_ids: torch.Tensor,
     mask = make_attention_mask(l, l, kv_valid=attn_mask, causal=causal, device=x.device)
     for p in iter_layers(params["layers"]):
         h = x + attention_block(p, cfg, rms_norm(x, p["input_norm"], cfg.rms_norm_eps),
-                                cos, sin, mask)
-        x = h + mlp_block(p, rms_norm(h, p["post_norm"], cfg.rms_norm_eps))
+                                cos, sin, mask, group)
+        x = h + mlp_block(p, rms_norm(h, p["post_norm"], cfg.rms_norm_eps), group=group)
     if final_norm:
         x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return x
@@ -106,13 +114,15 @@ def embeddings_only(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(params: Params, cfg: QwenConfig, hidden: torch.Tensor,
-              int8_act: bool = False) -> torch.Tensor:
+              int8_act: bool = False, group=None) -> torch.Tensor:
     """Final hidden states -> vocab logits.  A serving ``lm_head`` (quantized,
     vocab padded to a multiple of 2048) is sliced back to ``vocab_size``;
-    without one the embeddings are tied: bf16 operands, f32 result."""
+    without one the embeddings are tied: bf16 operands, f32 result.  Under
+    tensor parallelism (``group``) the head is a column shard of the padded
+    vocab and the logits are gathered in rank order (qwen.py:199-216)."""
     head = params.get("lm_head")
     if head is not None:
-        logits = linear(hidden, head["kernel"], int8_act=int8_act)
+        logits = all_gather_cat(linear(hidden, head["kernel"], int8_act=int8_act), group)
         return logits[..., : cfg.vocab_size]
     emb = params["embed_tokens"]
     return torch.matmul(hidden.to(torch.bfloat16).float(),

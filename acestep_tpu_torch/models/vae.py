@@ -24,7 +24,11 @@ block 2 (256 channels, at L / 8) the unit.
 The tiled decode (vae.py:484-700) groups its overlap-discard windows by (size,
 trims), stacks each group's (window, item) rows window-major and decodes at
 most ``max_window_batch`` rows a call; ``fused_decode_windows_int16`` decodes
-one segment of a segmented decode at its own scale.
+one segment of a segmented decode at its own scale.  Given a process group
+(``group``: every rank of a mesh), each group of windows is dealt over its
+ranks (vae.py:484-600): the stack is padded to a multiple of the group size,
+rank i decodes the i-th contiguous block of at most ``max_window_batch`` rows
+a call, and the decoded rows are gathered back in window order on every rank.
 
 ``encode``, ``encode_and_sample``, ``decode`` and ``tiled_encode`` are
 differentiable, as the JAX functions are: with grad on and an input or
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 
 from acestep_tpu_torch.config import VAEConfig
 from acestep_tpu_torch.ops.cuda import vae_resunit as _vru
+from acestep_tpu_torch.parallel.distributed import all_gather_cat
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,14 +194,35 @@ def _decode_rows(params, cfg, latents, max_rows: int) -> torch.Tensor:
     return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
 
 
-def _decode_window_groups(params, cfg, latents, windows, max_window_batch: int):
+def _decode_rows_sharded(params, cfg, rows, max_rows: int, group) -> torch.Tensor:
+    """decode() of a stack of rows dealt over ``group``'s ranks: at most
+    ``max_rows`` rows a rank a call, padded to a multiple of the group size
+    (the padding decodes silence and is dropped), every rank's rows gathered
+    back in order."""
+    n, n_dev = rows.shape[0], group.size
+    wb = max(1, min(max_rows, -(-n // n_dev)))
+    parts = []
+    for g0 in range(0, n, wb * n_dev):
+        grp = rows[g0:g0 + wb * n_dev]
+        pad = -grp.shape[0] % n_dev
+        if pad:
+            grp = F.pad(grp, (0, 0, 0, 0, 0, pad))
+        per = grp.shape[0] // n_dev
+        out = all_gather_cat(decode(params, cfg, grp[group.index * per:(group.index + 1) * per]),
+                             group, dim=0)
+        parts.append(out[:out.shape[0] - pad])
+    return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+
+
+def _decode_window_groups(params, cfg, latents, windows, max_window_batch: int, group=None):
     """Decode and trim every window of ``latents [B, T, 64]``; returns the
     pieces in window order, each [B, L_w, C] (vae.py:484-562).
 
     Windows are grouped by (size, head trim, tail trim); a group's (window,
     item) rows are stacked window-major, ``[Nw * B, size, 64]``, decoded at
     most ``max_window_batch`` rows a call (a merged batch is bounded like a
-    long song's window stack), trimmed, and split back per window."""
+    long song's window stack), trimmed, and split back per window; with
+    ``group`` the rows are dealt over its ranks (:func:`_decode_rows_sharded`)."""
     b = latents.shape[0]
     groups: Dict[Tuple[int, int, int], List[int]] = {}
     for idx, (cs, ce, ws, we) in enumerate(windows):
@@ -204,7 +230,10 @@ def _decode_window_groups(params, cfg, latents, windows, max_window_batch: int):
     decoded = {}
     for (size, tf0, tf1), idxs in groups.items():
         stacked = torch.cat([latents[:, windows[i][2]:windows[i][3]] for i in idxs], dim=0)
-        audio = _decode_rows(params, cfg, stacked, max_window_batch)
+        if group is not None and group.size > 1:
+            audio = _decode_rows_sharded(params, cfg, stacked, max_window_batch, group)
+        else:
+            audio = _decode_rows(params, cfg, stacked, max_window_batch)
         ups = audio.shape[1] / size
         t0, t1 = int(round(tf0 * ups)), int(round(tf1 * ups))
         trimmed = audio[:, t0:audio.shape[1] - t1]
@@ -230,30 +259,34 @@ def _to_int16(pieces: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
 @torch.no_grad()
 def fused_decode_windows_int16(
     params: Params, cfg: VAEConfig, latents: torch.Tensor,
-    windows: Sequence[Tuple[int, int, int, int]], max_window_batch: int = 4,
+    windows: Sequence[Tuple[int, int, int, int]], max_window_batch: int = 4, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One segment of a segmented tiled decode: the (segment-relative) windows
     of ``latents [1, T_seg, 64]`` decoded, trimmed, concatenated and quantized
     at the segment's own peak scale -> (i16 flat, scale []).  The caller
-    reconciles the segments to the lowest scale."""
+    reconciles the segments to the lowest scale.  ``group``: the windows dealt
+    over its ranks."""
     return _to_int16(_decode_window_groups(params, cfg, latents, list(windows),
-                                           max_window_batch))
+                                           max_window_batch, group))
 
 
 @torch.no_grad()
 def fused_tiled_decode_int16(
     params: Params, cfg: VAEConfig, latents: torch.Tensor,
     chunk_frames: int = 512, overlap_frames: Optional[int] = None,
-    max_window_batch: int = 4,
+    max_window_batch: int = 4, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tiled decode, overlap trim, concat, global peak and int16 quantization:
     returns (audio_i16 flat [B*L*C] in C order, scale []) with
     ``scale = 32767 * min(1, 0.99 / peak)`` (the WAV output scale).  At most
-    ``max_window_batch`` (item, window) rows are decoded a call."""
+    ``max_window_batch`` (item, window) rows are decoded a call.  ``group``:
+    the windows dealt over its ranks (one window decodes on every rank, as the
+    JAX package's single-window path does)."""
     if chunk_frames >= latents.shape[1]:
         return _to_int16([_decode_rows(params, cfg, latents, max_window_batch)])
     windows = _window_plan(latents.shape[1], chunk_frames, overlap_frames)
-    return _to_int16(_decode_window_groups(params, cfg, latents, windows, max_window_batch))
+    return _to_int16(_decode_window_groups(params, cfg, latents, windows, max_window_batch,
+                                           group))
 
 
 def tiled_encode(params: Params, cfg: VAEConfig, audio: torch.Tensor,

@@ -27,6 +27,14 @@ reconciled to the lowest (``segment_windows``, ``reconcile_segments``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for the card where there is none raises.
 
+``AceStepEngine(mesh=)`` serves from a (dp, tp) group of processes, one a
+rank, every rank calling ``generate`` with the same request and returning the
+same result (parallel/): the DiT is tensor-parallel over tp (unfused; the
+lyric and timbre encoders too), the text encoder and the VAE are replicated,
+a batch splits over dp where dp divides it (pipeline.py:640-695), and the VAE
+decode deals its windows over every rank (``vae_shard``, the JAX package's
+``ACESTEP_TPU_VAE_SHARD``).
+
 ``AceStepEngine(dit_mega=True)`` and ``(int8_act=True)`` stand for the JAX
 package's ``ACESTEP_TPU_DIT_MEGA=1`` and ``ACESTEP_TPU_INT8_ACT=1`` (see
 models/dit.py).  The megakernel runs only where no self-attention mask is
@@ -58,8 +66,11 @@ from acestep_tpu_torch.ops.qlinear import precast_quant_scales
 SEGMENT_FRAMES = 2048       # latent frames a decode segment aims at (pipeline.py:239-250)
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; a CUDA device without a card raises."""
+def resolve_device(device=None, mesh=None) -> torch.device:
+    """``None`` means the card (under a ``mesh``, this rank's card); a CUDA
+    device without a card raises."""
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the host")
@@ -108,25 +119,28 @@ def decode_chunk(plan: memory_planner.Plan) -> int:
 
 
 def decode_one_pass(vae_params, vae_cfg: VAEConfig, latents: torch.Tensor,
-                    plan: memory_planner.Plan):
+                    plan: memory_planner.Plan, group=None):
     """[B, T, C] latents decoded in one pass at the plan's chunk and window
-    batch: (int16 [B, L * channels], scale), on the device."""
+    batch: (int16 [B, L * channels], scale), on the device; ``group`` deals
+    the windows over its ranks (models/vae.py)."""
     return vae.fused_tiled_decode_int16(vae_params, vae_cfg, latents,
                                         chunk_frames=decode_chunk(plan),
-                                        max_window_batch=plan.vae_window_batch)
+                                        max_window_batch=plan.vae_window_batch, group=group)
 
 
 def decode_segments(vae_params, vae_cfg: VAEConfig, latents: torch.Tensor,
-                    plan: memory_planner.Plan):
+                    plan: memory_planner.Plan, group=None):
     """The segmented decode (pipeline.py:724-822) of [1, T, C] latents,
     launched on the device: one (int16, scale) a segment, each at its own
-    scale; [] when the plan's chunk cuts fewer than two windows."""
+    scale; [] when the plan's chunk cuts fewer than two windows.  ``group``
+    as :func:`decode_one_pass`."""
     chunk, t = decode_chunk(plan), latents.shape[1]
     windows = vae._window_plan(t, chunk, None) if chunk < t else []
     if len(windows) < 2:
         return []
     return [vae.fused_decode_windows_int16(vae_params, vae_cfg, latents[:, lo:hi], rel,
-                                           max_window_batch=plan.vae_window_batch)
+                                           max_window_batch=plan.vae_window_batch,
+                                           group=group)
             for lo, hi, rel in segment_windows(windows, chunk)]
 
 
@@ -143,6 +157,13 @@ def reconcile_segments(fetched, channels: int):
             seg = np.round(seg.astype(np.float32) * (scale / s_g)).astype(np.int16)
         segments.append(seg)
     return segments, scale
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """A seed of its own for stream ``index`` of ``seed`` (under a dp split,
+    the JAX package's ``fold_in`` of the dp index, tp.py:132; not its bits)."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
+    return int(state) & ((1 << 63) - 1)
 
 
 def _token_bucket(n: int) -> int:
@@ -167,19 +188,23 @@ def _pad_tokens(ids, mask, device):
 @torch.no_grad()
 def encode_condition(dit_params, text_params, dit_cfg: DiTConfig, text_cfg: QwenConfig,
                      style_ids, style_mask, lyric_ids, lyric_mask, refer_latents=None,
-                     refer_frame_mask=None, refer_clip_mask=None):
+                     refer_frame_mask=None, refer_clip_mask=None, *, group=None):
     """Lyric + timbre + style condition -> (packed_hidden [B, Ll+n+Ls, H],
     packed_mask) (pipeline.py:94-117).  ``refer_latents`` [B, n, Lr, C] with
     its frame mask [B, n, Lr] gives one timbre token a clip, valid where
-    ``refer_clip_mask`` [B, n] is 1."""
+    ``refer_clip_mask`` [B, n] is 1.  ``group``: the lyric and timbre encoders
+    tensor-parallel (``dit_params`` and ``dit_cfg`` local), the text encoder
+    replicated."""
     parts = []
     if lyric_ids is not None:
         emb = qwen.embeddings_only(text_params, lyric_ids)
-        parts.append((dit.lyric_encoder(dit_params, dit_cfg, emb, lyric_mask), lyric_mask))
+        parts.append((dit.lyric_encoder(dit_params, dit_cfg, emb, lyric_mask, group),
+                      lyric_mask))
     if refer_latents is not None:
         b, n, lr, c = refer_latents.shape
         fm = None if refer_frame_mask is None else refer_frame_mask.reshape(b * n, lr)
-        toks = dit.timbre_encoder(dit_params, dit_cfg, refer_latents.reshape(b * n, lr, c), fm)
+        toks = dit.timbre_encoder(dit_params, dit_cfg, refer_latents.reshape(b * n, lr, c), fm,
+                                  group)
         parts.append((toks.reshape(b, n, -1), refer_clip_mask))
     if style_ids is not None:
         hs = qwen.forward(text_params, text_cfg, style_ids, style_mask)
@@ -262,24 +287,44 @@ class GenerationResult:
 
 
 class AceStepEngine:
-    """Owns the params and configs of the DiT / VAE / text encoder on one device.
+    """Owns the params and configs of the DiT / VAE / text encoder on one device
+    (on each rank's device under a ``mesh``, this rank's DiT shards).
 
     The silence latent (text2music src context) is VAE-encoded once per engine
     and tiled per request."""
 
     def __init__(self, dit_params, dit_cfg: DiTConfig, vae_params, vae_cfg: VAEConfig,
                  text_params, text_cfg: QwenConfig, device=None, *, dit_mega: bool = False,
-                 int8_act: bool = False):
-        self.device = resolve_device(device)
+                 int8_act: bool = False, mesh=None, vae_shard: bool = True):
+        self.device = resolve_device(device, mesh)
         self.dit_mega = dit_mega
         self.int8_act = int8_act
-        # stacked decoder layers, fused q||k||v and gate||up, f32 scales once
-        self.dit_params = precast_quant_scales(dit.fuse_params(dit.stack_params(dit_params)))
         self.dit_cfg = dit_cfg
-        self.vae_params = vae_params
         self.vae_cfg = vae_cfg
-        self.text_params = precast_quant_scales(qwen.stack_params(text_params))
         self.text_cfg = text_cfg
+        self.mesh = mesh
+        # stacked decoder layers, fused q||k||v and gate||up (exact), f32 scales
+        # once; under tensor parallelism the per-projection weights are
+        # column-sharded instead (pipeline.py:315-347)
+        self.dit_params = dit.stack_params(dit_params)
+        if mesh is None or mesh.tp == 1:
+            self.dit_params = dit.fuse_params(self.dit_params)
+        self.dit_params = precast_quant_scales(self.dit_params)
+        self.vae_params = vae_params
+        self.text_params = precast_quant_scales(qwen.stack_params(text_params))
+        if mesh is None:
+            self.run_cfg, self.group, self._tp, self._vae_group = dit_cfg, None, None, None
+        else:
+            from acestep_tpu_torch.parallel import sharding, tp
+
+            self.dit_params = sharding.shard_params(self.dit_params, mesh)
+            self.text_params = sharding.replicate(self.text_params, mesh)
+            self.vae_params = sharding.replicate(self.vae_params, mesh)
+            self.run_cfg, self.group = tp.local_cfg(dit_cfg, mesh.tp), mesh.tp_group
+            self._tp = {"sampler": tp.make_tp_sampler(dit_cfg, mesh),
+                        "cfg_sampler": tp.make_tp_cfg_sampler(dit_cfg, mesh),
+                        "condition": tp.make_tp_condition(dit_cfg, text_cfg, mesh)}
+            self._vae_group = mesh.world if vae_shard and mesh.world_size > 1 else None
         self._silence: Optional[torch.Tensor] = None
         self._param_bytes: Optional[int] = None
 
@@ -321,8 +366,9 @@ class AceStepEngine:
         """Reference latents [B, n, Lr, 64] -> (timbre tokens [B, n, H], clip
         mask [B, n], ones unless given), every frame valid (pipeline.py:407-419)."""
         b, n, lr, c = np.asarray(refer_latents).shape
-        toks = dit.timbre_encoder(self.dit_params, self.dit_cfg,
-                                  self._tensor(refer_latents).reshape(b * n, lr, c))
+        toks = dit.timbre_encoder(self.dit_params, self.run_cfg,
+                                  self._tensor(refer_latents).reshape(b * n, lr, c),
+                                  group=self.group)
         mask = (torch.ones((b, n), dtype=torch.int32, device=self.device) if refer_mask is None
                 else self._tensor(refer_mask, torch.int32))
         return toks.reshape(b, n, -1), mask
@@ -349,9 +395,12 @@ class AceStepEngine:
                                     else np.asarray(req.refer_mask, np.int32), torch.int32)
         if req.style_token_ids is not None:
             style_ids, style_mask = _pad_tokens(req.style_token_ids, req.style_mask, self.device)
-        enc, mask = encode_condition(self.dit_params, self.text_params, self.dit_cfg,
-                                     self.text_cfg, style_ids, style_mask, lyric_ids, lyric_mask,
-                                     refer, refer_fm, refer_cm)
+        args = (style_ids, style_mask, lyric_ids, lyric_mask, refer, refer_fm, refer_cm)
+        if self._tp is not None:
+            enc, mask = self._tp["condition"](self.dit_params, self.text_params, *args)
+        else:
+            enc, mask = encode_condition(self.dit_params, self.text_params, self.dit_cfg,
+                                         self.text_cfg, *args)
         if enc.shape[0] == 1 and b > 1:
             enc, mask = enc.expand(b, -1, -1), mask.expand(b, -1)
         return enc, mask
@@ -448,6 +497,8 @@ class AceStepEngine:
         token count)."""
         from acestep_tpu_torch import alignment
 
+        if self.mesh is not None:
+            raise NotImplementedError("the lyric alignment probe runs on an unmeshed engine")
         if req.lyric_token_ids is None:
             raise ValueError("request has no lyric tokens to align")
         lat = self._tensor(latents)
@@ -561,23 +612,37 @@ class AceStepEngine:
             attn_mask = (torch.arange(t, device=self.device)[None, :] < valid).to(torch.int32)
 
         t1 = time.perf_counter()
+        # under a mesh the batch splits over dp where dp divides it
+        # (pipeline.py:640-695); each dp row block draws its own SDE noise
+        split = self.mesh is not None and self.mesh.dp > 1 and b % self.mesh.dp == 0
         sde_gen = None
         if req.infer_method == "sde" and sde_noise is None:
-            sde_gen = torch.Generator(device=self.device).manual_seed(int(seeds[0]))
+            sde_gen = torch.Generator(device=self.device).manual_seed(
+                fold_seed(int(seeds[0]), self.mesh.dp_rank) if split else int(seeds[0]))
         if use_cfg:
-            latents = sampler.sample_latents_cfg(
-                self.dit_params, self.dit_cfg, noise, ctx, enc, enc_mask, enc_u, enc_u_mask,
-                schedule, guidance_scale=req.guidance_scale,
-                cfg_interval_start=req.cfg_interval_start,
-                cfg_interval_end=req.cfg_interval_end, use_adg=req.use_adg,
-                infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
-                attn_mask=attn_mask, int8_act=self.int8_act)
+            kw = dict(guidance_scale=req.guidance_scale,
+                      cfg_interval_start=req.cfg_interval_start,
+                      cfg_interval_end=req.cfg_interval_end, use_adg=req.use_adg,
+                      infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
+                      attn_mask=attn_mask, int8_act=self.int8_act)
+            if self._tp is not None:
+                latents = self._tp["cfg_sampler"](
+                    self.dit_params, noise, ctx, enc, enc_mask, enc_u, enc_u_mask, schedule,
+                    batch_sharded=split, **kw)
+            else:
+                latents = sampler.sample_latents_cfg(
+                    self.dit_params, self.dit_cfg, noise, ctx, enc, enc_mask, enc_u,
+                    enc_u_mask, schedule, **kw)
         else:
-            latents = sampler.sample_latents(
-                self.dit_params, self.dit_cfg, noise, ctx, enc, enc_mask, schedule,
-                attn_mask=attn_mask, dit_mega=self.dit_mega, int8_act=self.int8_act,
-                infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
-                **cover_kw)
+            kw = dict(attn_mask=attn_mask, dit_mega=self.dit_mega, int8_act=self.int8_act,
+                      infer_method=req.infer_method, sde_noise=sde_noise, sde_generator=sde_gen,
+                      **cover_kw)
+            if self._tp is not None:
+                latents = self._tp["sampler"](self.dit_params, noise, ctx, enc, enc_mask,
+                                              schedule, batch_sharded=split, **kw)
+            else:
+                latents = sampler.sample_latents(self.dit_params, self.dit_cfg, noise, ctx,
+                                                 enc, enc_mask, schedule, **kw)
         self._sync()
         time_costs["diffusion_time_cost"] = time.perf_counter() - t1
         time_costs["diffusion_per_step_time_cost"] = (
@@ -591,8 +656,8 @@ class AceStepEngine:
         t2 = time.perf_counter()
         # segmented decode: segments of about SEGMENT_FRAMES (at least two
         # windows), each quantized at its own scale, then reconciled
-        handles = (decode_segments(self.vae_params, self.vae_cfg, latents_valid, plan)
-                   if b == 1 else [])
+        handles = (decode_segments(self.vae_params, self.vae_cfg, latents_valid, plan,
+                                   self._vae_group) if b == 1 else [])
         if handles:
             self._sync()
             time_costs["vae_compute_time_cost"] = time.perf_counter() - t2
@@ -609,7 +674,8 @@ class AceStepEngine:
                 time_costs=time_costs, seeds=seeds, audio_lengths=audio_lengths,
                 audio_scale=scale, audio_i16_segments=segments)
 
-        i16, scale = decode_one_pass(self.vae_params, self.vae_cfg, latents_valid, plan)
+        i16, scale = decode_one_pass(self.vae_params, self.vae_cfg, latents_valid, plan,
+                                     self._vae_group)
         self._sync()
         time_costs["vae_compute_time_cost"] = time.perf_counter() - t2
         t_fetch = time.perf_counter()
@@ -630,15 +696,19 @@ def build_random_engine(device=None, quant: Optional[str] = "q8_0", seed: int = 
                         dit_cfg: Optional[DiTConfig] = None,
                         vae_cfg: Optional[VAEConfig] = None,
                         text_cfg: Optional[QwenConfig] = None, *, dit_mega: bool = False,
-                        int8_act: bool = False) -> AceStepEngine:
+                        int8_act: bool = False, mesh=None, vae_shard: bool = True
+                        ) -> AceStepEngine:
     """Random-weight engine (full width by default), initialised and quantized
     on ``device`` with a seeded torch.Generator there.  ``quant``: q8_0, q4_0,
-    q4_k, q6_k, or None for bf16 kernels; ``dit_mega`` / ``int8_act`` as
-    :class:`AceStepEngine`."""
-    dev = resolve_device(device)
+    q4_k, q6_k, or None for bf16 kernels; ``dit_mega`` / ``int8_act`` /
+    ``mesh`` / ``vae_shard`` as :class:`AceStepEngine`.  Under a mesh every
+    rank draws the whole trees from the same seed on its own device (equal
+    weights on every rank of one device type) and keeps its DiT shards; the
+    whole DiT tree lives only until the engine has cut it."""
+    dev = resolve_device(device, mesh)
     dit_cfg, vae_cfg, text_cfg = dit_cfg or DiTConfig(), vae_cfg or VAEConfig(), \
         text_cfg or QwenConfig()
     init = RandomInit(dev, seed, quant)
     return AceStepEngine(init.dit(dit_cfg), dit_cfg, init.vae(vae_cfg), vae_cfg,
                          init.qwen(text_cfg), text_cfg, device=dev, dit_mega=dit_mega,
-                         int8_act=int8_act)
+                         int8_act=int8_act, mesh=mesh, vae_shard=vae_shard)

@@ -101,8 +101,12 @@ def sample_latents(
     encoder_hidden_states_non_cover: Optional[torch.Tensor] = None,
     context_latents_non_cover: Optional[torch.Tensor] = None,
     encoder_attn_mask_non_cover: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """Run the Euler loop; returns clean latents x0 [B, T, 64] (f32).
+    ``group``: this rank's tp group under tensor parallelism (``params`` and
+    ``cfg`` local, as ``parallel.tp`` builds them; the cross K/V then cover
+    the local heads only, and the megakernel stays off).
 
     The condition is projected and its per-layer cross-attention K/V computed
     once (and stacked once for the megakernel), then the DiT runs once per
@@ -123,7 +127,7 @@ def sample_latents(
     dtype = torch.bfloat16
     dev = noise.device
     xt = noise.float()
-    mega = dit_mega and b == 1 and attn_mask is None
+    mega = dit_mega and group is None and b == 1 and attn_mask is None
 
     def condition(hidden):
         kv = dit.compute_all_cross_kv(
@@ -147,7 +151,7 @@ def sample_latents(
         vt = dit.forward(params, cfg, xt.to(dtype), t_b, t_b, ctx_i, kv_i,
                          attn_mask=attn_mask, encoder_attn_mask=mask_i,
                          dit_mega=dit_mega, int8_act=int8_act,
-                         cross_kv_stacked=st_i).float()
+                         cross_kv_stacked=st_i, group=group).float()
         xt = _euler(xt, vt, t, t_next, i == n_steps - 1, infer_method,
                     lambda: _sde_draw(i, xt.shape, dev, sde_noise, sde_generator))
     return xt
@@ -184,8 +188,10 @@ def sample_latents_cfg(
     sde_generator: Optional[torch.Generator] = None,
     attn_mask: Optional[torch.Tensor] = None,
     int8_act: bool = False,
+    group=None,
 ) -> torch.Tensor:
-    """The base model's classifier-free-guided Euler loop (sampler.py:321-425).
+    """The base model's classifier-free-guided Euler loop (sampler.py:321-425);
+    ``group`` as :func:`sample_latents`.
 
     Cond and uncond are padded to a common length and run as one 2B forward a
     step (the layer path: the megakernel takes batch 1 only); inside the
@@ -215,7 +221,7 @@ def sample_latents_cfg(
         t2b = t.expand(2 * b)
         vt2 = dit.forward(params, cfg, torch.cat([xt, xt], dim=0).to(dtype), t2b, t2b, ctx2,
                           kv2, attn_mask=attn2, encoder_attn_mask=mask2,
-                          int8_act=int8_act).float()
+                          int8_act=int8_act, group=group).float()
         v_c, v_u = vt2[:b], vt2[b:]
         # the interval gate on progress = 1 - t, in f32 as the JAX scan compares it
         progress = np.float32(1.0) - np.float32(schedule[i])

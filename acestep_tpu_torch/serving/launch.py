@@ -58,17 +58,19 @@ def _load_cfg(checkpoint: str, name: str, cls):
 
 
 def build_engine(checkpoint: Optional[str] = None, quant: str = "q8_0",
-                 device=None, *, dit_mega: bool = False, int8_act: bool = False):
+                 device=None, *, dit_mega: bool = False, int8_act: bool = False, mesh=None):
     """(engine, unstacked DiT tree) of ``checkpoint`` on ``device`` (the card
     by default).  The tree is the checkpoint's ``dit`` files as read, which
     ``lora_runtime.LoRARuntime`` merges adapters into.  Without a checkpoint:
     a full-width random-weight engine quantized to ``quant`` (``"bf16"`` for
-    none), and None for the tree.  ``dit_mega`` / ``int8_act`` as
-    :class:`AceStepEngine`."""
+    none), and None for the tree.  ``dit_mega`` / ``int8_act`` / ``mesh`` as
+    :class:`AceStepEngine` (under a mesh, on the mesh's device unless
+    ``device`` is given; every rank reads the whole files and keeps its
+    shards)."""
     if not checkpoint:
         return build_random_engine(device=device, quant=None if quant == "bf16" else quant,
-                                   dit_mega=dit_mega, int8_act=int8_act), None
-    dev = resolve_device(device)
+                                   dit_mega=dit_mega, int8_act=int8_act, mesh=mesh), None
+    dev = resolve_device(device, mesh)
 
     def params(name):
         return loader.load_params(os.path.join(checkpoint, name), device=dev)
@@ -78,15 +80,16 @@ def build_engine(checkpoint: Optional[str] = None, quant: str = "q8_0",
                            params("vae"), _load_cfg(checkpoint, "vae", VAEConfig),
                            params("text_encoder"),
                            _load_cfg(checkpoint, "text_encoder", QwenConfig), device=dev,
-                           dit_mega=dit_mega, int8_act=int8_act)
+                           dit_mega=dit_mega, int8_act=int8_act, mesh=mesh)
     return engine, dit_params
 
 
-def build_lm(checkpoint: Optional[str], device=None, **knobs) -> Optional[LMPipeline]:
+def build_lm(checkpoint: Optional[str], device=None, mesh=None,
+             **knobs) -> Optional[LMPipeline]:
     """The LM planner of ``checkpoint`` on ``device`` (the card by default):
     ``lm`` parameters, ``lm.config.json`` and ``tokenizer.json``.  None when the
-    checkpoint has no LM: the server then runs the engine alone.  ``knobs`` go
-    to :class:`LMPipeline`."""
+    checkpoint has no LM: the server then runs the engine alone.  ``mesh`` and
+    ``knobs`` go to :class:`LMPipeline`."""
     if not checkpoint:
         return None
     lm_dir = os.path.join(checkpoint, "lm")
@@ -95,9 +98,9 @@ def build_lm(checkpoint: Optional[str], device=None, **knobs) -> Optional[LMPipe
         return None
     with open(os.path.join(checkpoint, "lm.config.json")) as f:
         cfg = QwenConfig.from_dict(json.load(f))
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     return LMPipeline(loader.load_params(lm_dir, device=dev), cfg,
-                      TokenizerJsonAdapter(tok_path), device=dev, **knobs)
+                      TokenizerJsonAdapter(tok_path), device=dev, mesh=mesh, **knobs)
 
 
 def build_codec(checkpoint: Optional[str], device=None):

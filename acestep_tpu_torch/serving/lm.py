@@ -1,6 +1,13 @@
 """LM planner serving: batched prefill and autoregressive decode over the int8
-KV cache (port of the JAX package's serving/lm.py, without tensor
-parallelism).
+KV cache (port of the JAX package's serving/lm.py).
+
+Tensor parallelism (``group``, parallel/lm_tp.py): every entry point takes
+this rank's tp group with local params and a local config (the rank's query
+and KV heads, its cache on its KV heads); o_proj and down_proj are
+row-parallel and the vocab-sharded head's logits are gathered (lm.py:38-65),
+so every rank samples the same token.  The decode megakernel stays off under a
+group (lm.py:415); the layer scan runs the decode-attention kernels at the
+local KV heads.
 
 Generation semantics (the JAX package's, from the reference engine):
   * temperature / top-k / top-p sampling (top-p by a 24-step bisection of the
@@ -54,6 +61,8 @@ from acestep_tpu_torch.ops import rope_cos_sin, rotate_half
 from acestep_tpu_torch.ops.cuda import decode_attn as _dattn
 from acestep_tpu_torch.ops.cuda import decode_mega as _dmega
 from acestep_tpu_torch.ops.qlinear import concat_weights_n, precast_quant_scales
+from acestep_tpu_torch.parallel.collective_matmul import row_parallel_linear
+from acestep_tpu_torch.parallel.distributed import all_gather_cat
 from acestep_tpu_torch.quant import QuantTensor, quantize
 from acestep_tpu_torch.serving import kv_cache as kvc
 from acestep_tpu_torch.serving.kv_cache import KVCache
@@ -170,7 +179,7 @@ def _write_prompt(cache: KVCache, li: int, t: int, kq, ks, vq, vs) -> None:
 
 @torch.no_grad()
 def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
-            lengths: torch.Tensor, cache: KVCache, *, int8_act: bool = False
+            lengths: torch.Tensor, cache: KVCache, *, int8_act: bool = False, group=None
             ) -> Tuple[torch.Tensor, KVCache]:
     """Causal forward over the right-padded prompt [B, T]; writes positions
     [0, T) of ``cache`` (in place) and returns the logits [B, vocab] f32 at
@@ -194,12 +203,12 @@ def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
         vq, vs = kvc.quantize_kv(v, kv_dtype)
         _write_prompt(cache, li, t, kq, ks, vq, vs)
         attn = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, t, nh * hd)
-        x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
-        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
+        x = x + row_parallel_linear(attn, p["o_proj"]["kernel"], group, int8_act)
+        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act, group)
     cache.length = lengths.to(torch.int32)
     x = rms_norm(x, params["norm"], eps)
     last = x[torch.arange(b, device=x.device), (lengths - 1).long()]
-    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act)[:, 0, :]
+    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act, group)[:, 0, :]
     return logits.float(), cache
 
 
@@ -207,7 +216,7 @@ def prefill(params: Dict[str, Any], cfg: QwenConfig, token_ids: torch.Tensor,
 def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                    new_ids: torch.Tensor, start: torch.Tensor,
                    suffix_lengths: Optional[torch.Tensor] = None, *,
-                   int8_act: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                   int8_act: bool = False, group=None) -> Tuple[torch.Tensor, KVCache]:
     """Prefill a suffix [B, T2] (right-padded to a bucket; ``suffix_lengths``
     valid) at positions [start, start + len) of a copy of ``cache``; returns the
     logits at the last valid suffix position and the extended copy."""
@@ -249,12 +258,12 @@ def extend_prefill(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
         attn = attention_int8(q, cache.k[li], cache.k_scale[li], cache.v[li],
                               cache.v_scale[li], cache_bias)
         attn = attn.transpose(1, 2).reshape(b, t2, nh * hd)
-        x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
-        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
+        x = x + row_parallel_linear(attn, p["o_proj"]["kernel"], group, int8_act)
+        x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act, group)
     cache.length = (start + suffix_lengths).to(torch.int32)
     x = rms_norm(x, params["norm"], eps)
     last = x[torch.arange(b, device=dev), (suffix_lengths - 1).long()]
-    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act)[:, 0, :]
+    logits = qwen.lm_logits(params, cfg, last[:, None, :], int8_act, group)[:, 0, :]
     return logits.float(), cache
 
 
@@ -282,8 +291,9 @@ def _write_token(cache: KVCache, k_new, ks_new, v_new, vs_new) -> None:
     cache.v_scale[:, bidx, :, pos] = vs_new.transpose(0, 1)
 
 
-def _use_mega(params, cfg, cache: KVCache, b: int, decode_mega: str, device) -> bool:
-    if decode_mega == "0" or (decode_mega == "auto" and device.type != "cuda"):
+def _use_mega(params, cfg, cache: KVCache, b: int, decode_mega: str, device, group) -> bool:
+    if group is not None or decode_mega == "0" or (decode_mega == "auto"
+                                                   and device.type != "cuda"):
         return False
     if isinstance(params["layers"], list) or cache.kv_dtype != "int8":
         return False
@@ -293,12 +303,13 @@ def _use_mega(params, cfg, cache: KVCache, b: int, decode_mega: str, device) -> 
 @torch.no_grad()
 def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                 token_ids: torch.Tensor, head=None, *, decode_mega: str = "auto",
-                decode_attn: str = "auto", int8_act: bool = False
+                decode_attn: str = "auto", int8_act: bool = False, group=None
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode position at each sequence's current length -> logits
     [B, vocab] f32.  The new token's K/V are written into ``cache`` (in place)
     at ``length``; the caller advances the lengths.  ``head`` overrides the
-    vocab projection (the reduced codes head)."""
+    vocab projection (the reduced codes head; under a group its column
+    shard)."""
     check_knobs(decode_mega, decode_attn, int8_act)
     b = token_ids.shape[0]
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
@@ -308,7 +319,7 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
     pos_ids = torch.arange(t_max, device=x.device)
     layers = params["layers"]
 
-    if _use_mega(params, cfg, cache, b, decode_mega, x.device):
+    if _use_mega(params, cfg, cache, b, decode_mega, x.device, group):
         x_res, k_new, ks_new, v_new, vs_new = _dmega.decode_layers_mega(
             layers, cfg, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.length,
             x[:, 0, :], cos[:, 0, :], sin[:, 0, :])
@@ -351,8 +362,8 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
                                                cache.v[li], cache.v_scale[li], bias_strict,
                                                k_self, v_self)
                     attn = attn.transpose(1, 2).reshape(b, 1, nh * hd)
-            x = x + linear(attn, p["o_proj"]["kernel"], int8_act=int8_act)
-            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
+            x = x + row_parallel_linear(attn, p["o_proj"]["kernel"], group, int8_act)
+            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act, group)
             news.append((kq_new, ks_new, vq_new, vs_new))
         _write_token(cache, *(torch.stack([n[i] for n in news]) for i in range(4)))
     else:
@@ -377,15 +388,15 @@ def decode_step(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache,
             cache.v_scale[li][bidx, :, pos] = vs_new
             attn = attention_int8(q, cache.k[li], cache.k_scale[li], cache.v[li],
                                   cache.v_scale[li], bias)
-            x = x + linear(attn.transpose(1, 2).reshape(b, 1, nh * hd), p["o_proj"]["kernel"],
-                           int8_act=int8_act)
-            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act)
+            x = x + row_parallel_linear(attn.transpose(1, 2).reshape(b, 1, nh * hd),
+                                  p["o_proj"]["kernel"], group, int8_act)
+            x = x + qwen.mlp_block(p, rms_norm(x, p["post_norm"], eps), int8_act, group)
 
     x = rms_norm(x, params["norm"], eps)
     if head is not None:
-        logits = linear(x, head, int8_act=int8_act)[:, 0, :]
+        logits = all_gather_cat(linear(x, head, int8_act=int8_act), group)[:, 0, :]
     else:
-        logits = qwen.lm_logits(params, cfg, x, int8_act)[:, 0, :]
+        logits = qwen.lm_logits(params, cfg, x, int8_act, group)[:, 0, :]
     return logits.float(), cache
 
 
@@ -508,21 +519,29 @@ class SamplingParams:
 def _scan_decode(params, cfg, sp: SamplingParams, b: int, cache: KVCache, logits, gen,
                  ucache: Optional[KVCache] = None, ulogits=None, min_tokens_arr=None,
                  forced_eos_arr=None, *, reduced_codes_head: bool = True,
-                 decode_mega: str = "auto", decode_attn: str = "auto", int8_act: bool = False):
+                 decode_mega: str = "auto", decode_attn: str = "auto", int8_act: bool = False,
+                 group=None, head_red_override=None):
     """Sample from ``logits`` then run ``max_new_tokens - 1`` cached decode
     steps (every step, as the JAX scan; finished rows are frozen).
     ``min_tokens_arr`` / ``forced_eos_arr`` [B] are per-row overrides of
     ``sp.min_tokens`` / ``sp.forced_eos_at``.  Returns (tokens [B, max_new]
-    int32 with -1 after a row's stop, n_generated [B]) on the device."""
+    int32 with -1 after a row's stop, n_generated [B]) on the device.
+
+    Under a group the reduced codes head cannot be cut from the rank's head
+    shard: the caller cuts the whole head and passes this rank's column shard
+    of the result (``head_red_override``; without it the full head runs)."""
     check_knobs(decode_mega, decode_attn, int8_act)
     dev = logits.device
     use_cfg = sp.cfg_scale != 1.0 and ucache is not None
     if use_cfg:
         logits = ulogits + sp.cfg_scale * (logits - ulogits)
 
-    head_red = None
+    head_red = head_red_override
     n_range = n_valid = 0
-    if sp.allowed_range is not None and reduced_codes_head:
+    if head_red is not None:
+        n_range = sp.allowed_range[1] - sp.allowed_range[0]
+        n_valid = n_range + (1 if sp.eos_token is not None else 0)
+    elif sp.allowed_range is not None and reduced_codes_head and group is None:
         w_full = (params.get("lm_head") or {}).get("kernel")
         if w_full is None:
             w_full = params["embed_tokens"].t()                     # tied
@@ -556,7 +575,9 @@ def _scan_decode(params, cfg, sp: SamplingParams, b: int, cache: KVCache, logits
     full_eos = None if sp.eos_token is None else (vocab_ids == sp.eos_token)[None, :]
     red_pad = red_eos = None
     if head_red is not None:
-        red_cols = torch.arange(head_red.shape[-1], device=dev)[None, :]
+        # under a group the head is this rank's column shard of the reduced head
+        red_width = head_red.shape[-1] * (1 if group is None else group.size)
+        red_cols = torch.arange(red_width, device=dev)[None, :]
         red_pad = red_cols >= n_valid
         red_eos = red_cols == n_range
 
@@ -589,7 +610,8 @@ def _scan_decode(params, cfg, sp: SamplingParams, b: int, cache: KVCache, logits
             s = s | (tok == sp.eos_token)
         return s
 
-    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
+                 group=group)
     cur = sample_logits(gen, constrain(logits, 0), sp.temperature, sp.top_k, sp.top_p)
     first_tok = cur
     finished = is_stop(cur)
@@ -630,27 +652,30 @@ def generate(params: Dict[str, Any], cfg: QwenConfig, prompt_ids: torch.Tensor,
              uncond_prompt_lengths: Optional[torch.Tensor] = None,
              min_tokens_arr=None, forced_eos_arr=None, *, kv_dtype: str = "int8",
              reduced_codes_head: bool = True, decode_mega: str = "auto",
-             decode_attn: str = "auto", int8_act: bool = False
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             decode_attn: str = "auto", int8_act: bool = False, group=None,
+             head_red_override=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate up to ``max_new_tokens`` per prompt row [B, T] (right-padded);
-    returns (tokens [B, max_new], n_generated [B]) on the prompt's device."""
+    returns (tokens [B, max_new], n_generated [B]) on the prompt's device.
+    ``group`` / ``head_red_override``: tensor parallelism (:func:`_scan_decode`)."""
     b, t_prompt = prompt_ids.shape
     dev = prompt_ids.device
     n_layers = cfg.num_hidden_layers
     max_len = kvc.round_len(t_prompt + sp.max_new_tokens + 1)
     cache = kvc.init_cache(n_layers, b, cfg.num_key_value_heads, max_len, cfg.head_dim,
                            kv_dtype, dev)
-    logits, cache = prefill(params, cfg, prompt_ids, prompt_lengths, cache, int8_act=int8_act)
+    logits, cache = prefill(params, cfg, prompt_ids, prompt_lengths, cache, int8_act=int8_act,
+                            group=group)
     ucache = ulogits = None
     if sp.cfg_scale != 1.0 and uncond_prompt_ids is not None:
         u_max = kvc.round_len(uncond_prompt_ids.shape[1] + sp.max_new_tokens + 1)
         ucache = kvc.init_cache(n_layers, b, cfg.num_key_value_heads, u_max, cfg.head_dim,
                                 kv_dtype, dev)
         ulogits, ucache = prefill(params, cfg, uncond_prompt_ids, uncond_prompt_lengths,
-                                  ucache, int8_act=int8_act)
+                                  ucache, int8_act=int8_act, group=group)
     return _scan_decode(params, cfg, sp, b, cache, logits, gen, ucache, ulogits,
                         min_tokens_arr, forced_eos_arr, reduced_codes_head=reduced_codes_head,
-                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
+                        group=group, head_red_override=head_red_override)
 
 
 @torch.no_grad()
@@ -659,14 +684,15 @@ def decode_from_state(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache, l
                       ucache: Optional[KVCache] = None, ulogits=None, min_tokens_arr=None,
                       forced_eos_arr=None, *, reduced_codes_head: bool = True,
                       decode_mega: str = "auto", decode_attn: str = "auto",
-                      int8_act: bool = False):
+                      int8_act: bool = False, group=None, head_red_override=None):
     """The decode loop from an existing prefilled state (the prefix-cache
     path); runs on copies of the caches."""
     b = logits.shape[0]
     return _scan_decode(params, cfg, sp, b, cache.clone(), logits, gen,
                         None if ucache is None else ucache.clone(), ulogits, min_tokens_arr,
                         forced_eos_arr, reduced_codes_head=reduced_codes_head,
-                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
+                        decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
+                        group=group, head_red_override=head_red_override)
 
 
 # ---------------------------------------------------------------------------
@@ -675,7 +701,7 @@ def decode_from_state(params: Dict[str, Any], cfg: QwenConfig, cache: KVCache, l
 # ---------------------------------------------------------------------------
 
 def _fsm_prefill(params, cfg: QwenConfig, prompt_ids: Sequence[int], max_new_tokens: int,
-                 kv_dtype: str, int8_act: bool):
+                 kv_dtype: str, int8_act: bool, group=None):
     """The unbucketed batch-1 prompt prefilled, on the params' device, into a
     fresh cache with room for ``max_new_tokens`` more positions."""
     device = params["embed_tokens"].device
@@ -684,7 +710,7 @@ def _fsm_prefill(params, cfg: QwenConfig, prompt_ids: Sequence[int], max_new_tok
     cache = kvc.init_cache(cfg.num_hidden_layers, 1, cfg.num_key_value_heads,
                            kvc.round_len(len(prompt_ids) + max_new_tokens + 1), cfg.head_dim,
                            kv_dtype, device)
-    return prefill(params, cfg, ids, lengths, cache, int8_act=int8_act)
+    return prefill(params, cfg, ids, lengths, cache, int8_act=int8_act, group=group)
 
 
 @torch.no_grad()
@@ -692,14 +718,19 @@ def generate_with_fsm(params: Dict[str, Any], cfg: QwenConfig, prompt_ids: Seque
                       vocab_strs: Sequence[str], gen: Optional[torch.Generator],
                       temperature: float = 0.7, max_new_tokens: int = 256, *,
                       kv_dtype: str = "int8", decode_mega: str = "auto",
-                      decode_attn: str = "auto", int8_act: bool = False) -> Tuple[list, str]:
+                      decode_attn: str = "auto", int8_act: bool = False,
+                      group=None) -> Tuple[list, str]:
     """Generate one sequence under the host-stepped ``constrained.MetadataFSM``,
     on the params' device: the prompt's prefill, then one decode step a token,
     each token drawn from the logits masked by ``fsm.allowed`` (greedy at
     temperature 0, else Gumbel-max from ``gen``).  Stops when the FSM is done
-    or its mask is empty.  Returns (token ids, text)."""
-    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act)
-    logits, cache = _fsm_prefill(params, cfg, prompt_ids, max_new_tokens, kv_dtype, int8_act)
+    or its mask is empty.  ``group``: tensor parallelism (local params and
+    config; every rank steps the same FSM on the same logits).  Returns (token
+    ids, text)."""
+    knobs = dict(decode_mega=decode_mega, decode_attn=decode_attn, int8_act=int8_act,
+                 group=group)
+    logits, cache = _fsm_prefill(params, cfg, prompt_ids, max_new_tokens, kv_dtype, int8_act,
+                                 group)
     device = logits.device
     vocab = len(vocab_strs)
     ones = torch.ones((1,), dtype=torch.bool, device=device)

@@ -1,5 +1,4 @@
-"""Layered runtime settings of the port: port of the JAX package's settings.py
-(without its device-count tiers: the port serves on one card).
+"""Layered runtime settings of the port: port of the JAX package's settings.py.
 
 Resolution order (highest wins):
   1. explicit overrides (constructor kwargs / CLI flags)
@@ -7,17 +6,23 @@ Resolution order (highest wins):
   3. a ``.env`` file in the working directory (KEY=VALUE lines, # comments)
   4. built-in defaults
 
+Given a device count, ``load`` adds the mesh shape (dp, tp): the tier
+table's tp clamped to the ranks of one host, dp the rest
+(``parallel.mesh.mesh_shape``).  It comes from the topology alone; no
+environment variable or override sets it.
+
 Only the knobs that the CLI reads through :class:`Settings` are declared,
 so ``describe()`` lists nothing inert: the weight format, the DiT megakernel
 switch and the int8-activation switch, which the CLI passes to the engine
-builders as arguments.
+builders as arguments, and under ``torchrun`` the (dp, tp) that shape its
+mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 # knob -> (env var, type, default)
 KNOBS = {
@@ -54,10 +59,17 @@ class Settings:
     sources: Dict[str, str]
 
     @classmethod
-    def load(cls, env_file: str = ".env", **overrides) -> "Settings":
+    def load(cls, env_file: str = ".env", n_devices: Optional[int] = None,
+             local_devices: Optional[int] = None, **overrides) -> "Settings":
         file_env = read_env_file(env_file)
         values: Dict[str, Any] = {}
         sources: Dict[str, str] = {}
+        if n_devices is not None:
+            from acestep_tpu_torch.parallel.mesh import mesh_shape
+
+            shape = mesh_shape(n_devices, local_devices or n_devices)
+            for k, v in zip(("dp", "tp"), shape):
+                values[k], sources[k] = v, "topology"
         for name, (env, t, default) in KNOBS.items():
             values[name] = default
             sources[name] = "default"

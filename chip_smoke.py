@@ -273,7 +273,35 @@ Phases, each announced by a timestamped line:
                 graphs beside torch.matmul);
                 the DiT megakernel at T 256 and 128 with its stage split, beside
                 the layer-path step
-Then one {"kernels": [...]} line, the nvidia-smi line, and last the result line.
+ 34. tp         serving from a (dp, tp) group of processes (acestep_tpu_torch/
+                parallel/): each world's ranks are children of this script
+                (``chip_smoke.py --tp-rank SPEC RANK``, outputs in
+                build/tp_phase/; a world past TP_CHILD_S, or any rank failing,
+                fails the run, and the watchdog kills them), each drawing
+                the full-width weights from the earlier phases' seeds on its
+                device and keeping its shards; one all_reduce over the world on
+                the backend first.  World 1 over NCCL: the 10 s q8_0 request,
+                latents and int16 equal to phase serve's bit for bit.  Worlds
+                2 and 4 over gloo, every rank on cuda:0 (NCCL takes one rank a
+                card): the 10 s request at (dp, tp) = (1, 2) and (1, 4), phase
+                serve's batch of two at (2, 2) (split over dp), the 60 s q4_k
+                request at (1, 2) (its decode windows dealt over both ranks),
+                and phase lm_engine's 0.6B planner, TP_LM_STEPS greedy codes at
+                tp 2 and 4 on rows 9 and 10: every rank's outputs equal bit for
+                bit; latents against the one process at the Q8_0 gate, the
+                waveform against the one process's decode of those latents at
+                the gate, and against the one-process waveform no more than
+                TP_WITNESS_MARGIN_DB below a witness (the one process's
+                latents plus white noise of the world's latent difference's
+                power, decoded: the random decoder magnifies any latent
+                difference); the planner's
+                tokens equal until a step whose top-1 / top-2 gap is below
+                check_mega's drift; each rank's seconds and peak memory, the
+                kernels launched at every new shape held to their plain
+                versions as in phase check (rows 1, 4, 7-8, 9-10).  With two or
+                more cards, NCCL over them too (a card a rank)
+Then one {"kernels": [...]} line (each row also with its launches in phase tp,
+"launches_tp"), the nvidia-smi line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
 """
@@ -407,6 +435,8 @@ def _watchdog() -> None:
         time.sleep(1.0)
     print(f"[chip_smoke] watchdog: phase '{_state['phase']}' overran {WATCHDOG_S} s",
           flush=True)
+    for p in _state.get("children", []):
+        p.kill()
     os._exit(3)
 
 
@@ -1663,17 +1693,17 @@ def random_cache(g, b, t_max, n_layers=28, hkv=8):
     return kq, ks, vq, vs
 
 
-def attn_case(b, lengths, seed, t_max=LM_T):
+def attn_case(b, lengths, seed, t_max=LM_T, hq=16, hkv=8):
     """Full-width inputs of rows 9 and 10 (16 query heads, 8 kv heads, 28
-    layers of cache)."""
+    layers of cache; under tensor parallelism a rank's hq / hkv)."""
     import torch
     from acestep_tpu_torch.serving import lm as lm_serving
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    kq, ks, vq, vs = random_cache(g, b, t_max)
+    kq, ks, vq, vs = random_cache(g, b, t_max, hkv=hkv)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q, k, v = (torch.randn((b, h, 128), generator=g, device="cuda").bfloat16()
-               for h in (16, 8, 8))
+               for h in (hq, hkv, hkv))
     qn, kn = (torch.randn(128, generator=g, device="cuda") for _ in range(2))
     cos, sin = (t[:, 0] for t in lm_serving._rope_at(lens, 128, 1e6))
     return dict(q=q, k=k, v=v, qn=qn, kn=kn, cos=cos, sin=sin, cache=(kq, ks, vq, vs),
@@ -1848,7 +1878,8 @@ def check_mega(check_layers, cfg):
     in every row at 2 layers, at 28 where the plain row's top-1 / top-2 gap is
     at least the x bound; reruns bit-identical.  Then the planted faults: each
     must fail the check at one of the two depths.  Returns (the x max abs
-    error, the bounds at all the layers, the (B, T) shapes checked)."""
+    error, the bounds at all the layers, the (B, T) shapes checked, the
+    drift at all the layers: x max err / peak, card against CPU)."""
     import torch
     from acestep_tpu_torch import weights
     from acestep_tpu_torch.models.stacking import first_layers
@@ -1893,9 +1924,10 @@ def check_mega(check_layers, cfg):
             t_cpu += time.perf_counter() - t
             runs[n_l].append((label, got, ref, cpu))
             last[n_l] = (args, ref)             # the faults run on the last case (B = 8)
-    bounds = {}
+    bounds, drifts = {}, {}
     for n_l, rs in runs.items():
         drift = [mega_diff([a.cpu() for a in ref], cpu, 0.0) for _, _, ref, cpu in rs]
+        drifts[n_l] = max(d["rel"] for d in drift)
         for (label, *_), d in zip(rs, drift):
             log(f"  {label}: plain on the card vs on the CPU: {mega_line(d)}")
         bounds[n_l] = mega_bounds(drift)
@@ -1924,7 +1956,8 @@ def check_mega(check_layers, cfg):
         if not any(seen):
             passed.append(fault)
     require(not passed, f"planted faults {passed} pass both megakernel checks")
-    return err, bounds[cfg.num_hidden_layers], {(b, LM_T) for b, _ in cases}
+    return (err, bounds[cfg.num_hidden_layers], {(b, LM_T) for b, _ in cases},
+            drifts[cfg.num_hidden_layers])
 
 
 def check_mega_shape(layers, cfg, bounds, shape, seed) -> float:
@@ -3245,6 +3278,471 @@ def convert_phase(dit_cfg, vae_cfg, text_cfg, style, lyric, need, dev="cuda"):
 # phases
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase tp: serving from a (dp, tp) group of processes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+TP_CHILD_S = 420               # each world's limit; a rank still running then is killed
+TP_LM_PROMPT = 200             # prompt tokens of the planner's codes phase in phase tp
+TP_LM_STEPS = 24               # its greedy codes (random weights: a close call comes early)
+TP_WITNESS_DRAWS = 3           # noise draws of the waveform witness (TpPhase.gate_pair)
+TP_WITNESS_MARGIN_DB = 3.0     # how far the world's waveform SNR may fall below the witness's
+
+
+def tp_lm_prompt():
+    import numpy as np
+
+    return np.random.default_rng(11).integers(0, 50000, (1, TP_LM_PROMPT))
+
+
+def tp_lm_sp():
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    tok = ByteTokenizer()
+    return lm_serving.SamplingParams(
+        temperature=0.0, max_new_tokens=TP_LM_STEPS,
+        allowed_range=(tok.audio_code_base_id, tok.audio_code_base_id + 64000),
+        eos_token=tok.eos_token_id)
+
+
+def _shapes_json(shapes):
+    return {name: [[list(k) if isinstance(k, tuple) else k, v] for k, v in by.items()]
+            for name, by in shapes.items()}
+
+
+def tp_engine_job(mesh, job, out, meta):
+    """A full-width random engine on the mesh serving ``job``'s requests, the
+    counts reset before each and read after it."""
+    import torch
+    from acestep_tpu_torch import pipeline
+
+    t = time.perf_counter()
+    engine = pipeline.build_random_engine(quant=job["quant"], seed=0, mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    meta["build_s"] = time.perf_counter() - t
+    for name, req in job["requests"].items():
+        reset_counts()
+        t = time.perf_counter()
+        res = engine.generate(pipeline.GenerationRequest(**req))
+        torch.cuda.synchronize(mesh.device)
+        launches, shapes = snapshot_counts()
+        out[f"{name}/latents"], out[f"{name}/audio"] = res.latents, res.audio_i16
+        meta[name] = {"seconds": time.perf_counter() - t, "launches": launches,
+                      "shapes": _shapes_json(shapes), "time_costs": res.time_costs}
+    del engine
+    free_engine()
+
+
+def tp_lm_job(mesh, job, out, meta):
+    """configs[2]'s 0.6B q8_0 planner (phase lm_engine's weights) on the mesh:
+    the greedy codes phase on each decode_attn kernel (rows 9 and 10 at the
+    rank's KV heads)."""
+    import torch
+    from acestep_tpu_torch.config import QWEN3_0_6B
+    from acestep_tpu_torch.models import qwen
+    from acestep_tpu_torch.parallel.lm_tp import LMTPContext
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    p = lm_serving.ensure_quantized_head(qwen.stack_params(
+        qwen.init_params(QWEN3_0_6B, device=mesh.device, seed=7, quant="q8_0")))
+    ctx = LMTPContext(p, QWEN3_0_6B, mesh)
+    del p
+    free_engine()
+    ids = torch.from_numpy(tp_lm_prompt()).to(mesh.device)
+    lens = torch.tensor([TP_LM_PROMPT], dtype=torch.int32, device=mesh.device)
+    for mode in job["modes"]:
+        ctx.knobs = dict(decode_attn=mode)
+        reset_counts()
+        t = time.perf_counter()
+        toks, n = ctx.generate(ids, lens, None, tp_lm_sp())
+        torch.cuda.synchronize(mesh.device)
+        launches, shapes = snapshot_counts()
+        out[f"{mode}/tokens"], out[f"{mode}/n"] = toks.cpu().numpy(), n.cpu().numpy()
+        meta[mode] = {"seconds": time.perf_counter() - t, "launches": launches,
+                      "shapes": _shapes_json(shapes)}
+
+
+def tp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of a phase-tp world (``chip_smoke.py --tp-rank SPEC RANK``):
+    join the group, form each job's mesh, run it, write this rank's outputs
+    and a JSON of its times, launches and peak memory."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch.parallel import distributed, make_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    # the library picks and sets the rank's card, as under torchrun: NCCL
+    # takes cuda:LOCAL_RANK; the one-card gloo worlds name their device
+    distributed.initialize(spec["backend"], spec["init_method"], spec["world"], rank)
+    device = (torch.device(spec["devices"][rank]) if spec["backend"] == "gloo"
+              else distributed.default_device())
+    # one collective over the whole world on the backend itself
+    ones = torch.ones(1, device=device)
+    ones = ones.cpu() if spec["backend"] == "gloo" else ones
+    torch.distributed.all_reduce(ones)
+    if int(ones.item()) != spec["world"]:
+        raise RuntimeError(f"all_reduce of ones over the world gave {ones.item()}")
+    out, meta = {}, {"init_s": time.perf_counter() - t0}
+    for i, job in enumerate(spec["jobs"]):
+        mesh = make_mesh(dp=job["mesh"][0], tp=job["mesh"][1],
+                         device=device if spec["backend"] == "gloo" else None)
+        require(torch.cuda.current_device() == device.index,
+                f"rank {rank}: the current device is cuda:{torch.cuda.current_device()}, "
+                f"not the mesh's {device}")
+        res, m = {}, {}
+        (tp_engine_job if job["kind"] == "engine" else tp_lm_job)(mesh, job, res, m)
+        out.update({f"{i}/{k}": v for k, v in res.items()})
+        meta[str(i)] = m
+    meta["seconds"] = time.perf_counter() - t0
+    meta["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    np.savez(os.path.join(spec["work"], f"rank{rank}.npz"), **out)
+    with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_world(label, backend, devices, jobs, work):
+    """Spawn one rank a device of ``devices`` (``chip_smoke.py --tp-rank``),
+    each with its output in ``work``; every rank must end with code 0 within
+    TP_CHILD_S (the rest are killed, and the watchdog kills them too).  Returns
+    (each rank's arrays, each rank's JSON)."""
+    import numpy as np
+    import torch
+
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"world": len(devices), "backend": backend, "devices": devices,
+                   "init_method": "file://" + os.path.join(work, "store"), "work": work,
+                   "jobs": jobs}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(len(devices))]
+    # each rank's LOCAL_RANK is its card's index, as torchrun sets it
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", spec_path,
+                               str(r)], stdout=logs[r], stderr=subprocess.STDOUT, cwd=here,
+                              env=dict(os.environ, LOCAL_RANK=str(torch.device(d).index),
+                                       LOCAL_WORLD_SIZE=str(len(devices))))
+             for r, d in enumerate(devices)]
+    _state["children"] = procs
+    deadline = time.perf_counter() + TP_CHILD_S
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                failed = (r, f"still running after {TP_CHILD_S} s")
+                break
+            if rc != 0:
+                failed = (r, f"exit code {rc}")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        _state["children"] = []
+    if failed is not None:
+        with open(os.path.join(work, f"rank{failed[0]}.log")) as f:
+            tail = f.read()[-4000:]
+        log(f"world {label}, rank {failed[0]} log (end):\n{tail}")
+        raise Failure(f"phase tp: world {label} failed: rank {failed[0]} {failed[1]}")
+    arrays, metas = [], []
+    for r in range(len(devices)):
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            arrays.append({k: z[k] for k in z.files})
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            metas.append(json.load(f))
+    return arrays, metas
+
+
+def tp_same_on_every_rank(label, arrays):
+    import numpy as np
+
+    for key in arrays[0]:
+        for r, a in enumerate(arrays[1:], 1):
+            require(np.array_equal(a[key], arrays[0][key]),
+                    f"phase tp: world {label}: rank {r}'s {key} differs from rank 0's")
+    log(f"  world {label}: every rank's outputs equal bit for bit ({len(arrays[0])} arrays, "
+        f"{len(arrays)} ranks)")
+
+
+def engine_decode(engine, latents):
+    """``engine``'s own decode of [B, T_valid, 64] latents, as ``generate``
+    runs it (segments reconciled for a batch-1 song of two or more windows,
+    else one pass): int16 [B, L, 2]."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+
+    lat = torch.from_numpy(latents).to(engine.device)
+    plan = engine.plan(lat.shape[0], lat.shape[1])
+    handles = (pipeline.decode_segments(engine.vae_params, engine.vae_cfg, lat, plan)
+               if lat.shape[0] == 1 else [])
+    if handles:
+        segments, _ = pipeline.reconcile_segments(
+            [(i16.cpu().numpy(), float(s)) for i16, s in handles], 2)
+        return np.concatenate(segments, axis=1)
+    i16, _ = pipeline.decode_one_pass(engine.vae_params, engine.vae_cfg, lat, plan)
+    return i16.cpu().numpy().reshape(lat.shape[0], -1, 2)
+
+
+def tp_lm_reference(params, mode):
+    """The single-process greedy codes phase (phase lm_engine's fused params,
+    the layer scan on ``mode``'s kernel) and, replaying its tokens, each step's
+    top-1 / top-2 gap of the allowed logits over their peak."""
+    import torch
+    from acestep_tpu_torch.config import QWEN3_0_6B
+    from acestep_tpu_torch.serving import kv_cache as kvc
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    sp = tp_lm_sp()
+    ids = torch.from_numpy(tp_lm_prompt()).cuda()
+    lens = torch.tensor([TP_LM_PROMPT], dtype=torch.int32, device="cuda")
+    toks, _ = lm_serving.generate(params, QWEN3_0_6B, ids, lens, None, sp, decode_mega="0",
+                                  decode_attn=mode)
+    toks = toks[0].cpu()
+    lo, hi = sp.allowed_range
+    cache = kvc.init_cache(QWEN3_0_6B.num_hidden_layers, 1, QWEN3_0_6B.num_key_value_heads,
+                           kvc.round_len(TP_LM_PROMPT + TP_LM_STEPS + 1), QWEN3_0_6B.head_dim,
+                           device="cuda")
+    logits, cache = lm_serving.prefill(params, QWEN3_0_6B, ids, lens, cache)
+    allowed = torch.zeros(logits.shape[-1], dtype=torch.bool, device="cuda")
+    allowed[lo:hi] = True
+    allowed[sp.eos_token] = True
+    one = torch.ones((1,), dtype=torch.bool, device="cuda")
+    gaps = []
+    for i in range(TP_LM_STEPS):
+        lg = torch.where(allowed, logits[0], float("-inf"))
+        top = torch.topk(lg, 2).values
+        gaps.append(float((top[0] - top[1]) / lg[allowed].abs().max()))
+        if i + 1 < TP_LM_STEPS:
+            logits, cache = lm_serving.decode_step(params, QWEN3_0_6B, cache,
+                                                   toks[i:i + 1].cuda(), decode_mega="0",
+                                                   decode_attn=mode)
+            cache = kvc.advance(cache, one)
+    return toks.numpy(), gaps
+
+
+class TpPhase:
+    """Phase tp (module docstring): the worlds and their checks against the
+    single-process results of the earlier phases (``results``), phase
+    lm_engine's planner (``lm_params``) and the drift check_mega measured
+    at 28 layers (the plain decode step's x on the card against the CPU,
+    max error over the peak)."""
+
+    def __init__(self, results, lm_params, mega_drift, recheck_shapes, check_attn_shape):
+        import numpy as np
+
+        self.t0 = time.perf_counter()
+        self.work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "tp_phase")
+        self.mega_drift = mega_drift
+        self.recheck_shapes, self.check_attn_shape = recheck_shapes, check_attn_shape
+        rng = np.random.default_rng(0)
+        style, lyric = rng.integers(0, 150000, (1, 64)), rng.integers(0, 150000, (1, 256))
+        r10 = dict(duration_s=10.0, style_token_ids=style.tolist(),
+                   lyric_token_ids=lyric.tolist(), seeds=[1])
+        self.requests = {"10s": r10, "60s": dict(r10, duration_s=60.0),
+                         "b2": dict(r10, batch_size=2,
+                                    style_token_ids=np.repeat(style, 2, 0).tolist(),
+                                    lyric_token_ids=np.repeat(lyric, 2, 0).tolist(),
+                                    seeds=[1, 2])}
+        self.refs = {"10s": results["10s"][-1], "60s": results["60s q4_k"][-1],
+                     "b2": results["b2"][-1]}
+        self.modes = ("pallas", "fused")
+        self.lm_ref = {m: tp_lm_reference(lm_params, m) for m in self.modes}
+        self.launched, self.decoders = {}, {}
+        attn, fused = decode_attn_names()
+        need10 = ["q8_0_qmm", "vae_res_unit", "vae_res_trio"]
+        self.need = {"10s": need10, "b2": need10, "60s": need10 + ["q4_k_qmm"],
+                     "pallas": [attn, "q8_0_qmm"], "fused": [fused, "q8_0_qmm"]}
+
+    def engine_job(self, mesh, quant, name):
+        return {"kind": "engine", "mesh": list(mesh), "quant": quant,
+                "requests": {name: self.requests[name]}}
+
+    def lm_job(self, mesh):
+        return {"kind": "lm", "mesh": list(mesh), "modes": list(self.modes)}
+
+    def gate_pair(self, label, quant, got_lat, got_audio, ref):
+        """The latents against the single-process engine's, and the waveform
+        against the single-process engine's decode of these latents, both at
+        the Q8_0 gate.  The waveform against the single-process waveform is
+        held to a witness: the single-process latents plus white noise of the
+        power of the world's latent difference, decoded by the single-process
+        engine (TP_WITNESS_DRAWS draws), show how far the random decoder moves
+        the waveform for such a difference alone; the world's waveform SNR
+        must be at least the lowest draw's less TP_WITNESS_MARGIN_DB."""
+        import numpy as np
+        from acestep_tpu_torch import pipeline
+
+        if quant not in self.decoders:
+            self.decoders.clear()
+            free_engine()
+            self.decoders[quant] = pipeline.build_random_engine(device="cuda", quant=quant,
+                                                                seed=0)
+        dec = self.decoders[quant]
+        mine = engine_decode(dec, got_lat)
+        for what, g, r in (("latents", got_lat, ref.latents), ("waveform", got_audio, mine)):
+            cos, snr = gate(r.astype(np.float64), g.astype(np.float64))
+            log(f"  {label} {what}: cosine {cos:.6f}, SNR {snr:.2f} dB (held: >= 0.999, >= 26)")
+            require(cos >= 0.999 and snr >= 26.0,
+                    f"phase tp: {label} {what} outside the Q8_0 gate")
+        sigma = float(np.sqrt(np.mean((got_lat.astype(np.float64)
+                                       - ref.latents.astype(np.float64)) ** 2)))
+        wit = []
+        for seed in range(TP_WITNESS_DRAWS):
+            noise = np.random.default_rng(seed).standard_normal(ref.latents.shape) * sigma
+            noisy = (ref.latents.astype(np.float64) + noise).astype(ref.latents.dtype)
+            wit.append(gate(ref.audio_i16.astype(np.float64),
+                            engine_decode(dec, noisy).astype(np.float64))[1])
+        _, lat_snr = gate(ref.latents.astype(np.float64), got_lat.astype(np.float64))
+        cos, snr = gate(ref.audio_i16.astype(np.float64), got_audio.astype(np.float64))
+        floor = min(wit) - TP_WITNESS_MARGIN_DB
+        log(f"  {label} waveform vs the single-process waveform: cosine {cos:.6f}, SNR "
+            f"{snr:.2f} dB; witness (one process, its latents plus white noise at the "
+            f"world's {lat_snr:.2f} dB, decoded): SNR "
+            + ", ".join(f"{w:.2f}" for w in wit) + f" dB (held: >= {floor:.2f})")
+        require(snr >= floor, f"phase tp: {label} waveform {snr:.2f} dB from the "
+                f"single-process waveform, below the witness's {min(wit):.2f} dB less "
+                f"{TP_WITNESS_MARGIN_DB} dB")
+
+    def account(self, label, metas):
+        """Each rank's seconds and peak memory; each run's launches (every
+        kernel of its path launched) and every new shape held to its plain
+        version."""
+        attn, fused = decode_attn_names()
+        for i, m in enumerate(metas):
+            log(f"  world {label} rank {i}: {m['seconds']:.1f} s (init {m['init_s']:.1f} s), "
+                f"peak device memory {m['peak_gib']:.2f} GiB")
+        for j, job in metas[0].items():
+            for name, run in (job.items() if isinstance(job, dict) else ()):
+                if not isinstance(run, dict):
+                    continue
+                log(f"  world {label} job {j} {name}: {run['seconds']:.2f} s; launches "
+                    + json.dumps({k: v for k, v in run["launches"].items() if v}))
+                for k in self.need[name]:
+                    require(run["launches"][k] > 0,
+                            f"phase tp: world {label} {name} did not launch {k}")
+                for r in metas:
+                    for k, v in r[j][name]["launches"].items():
+                        self.launched[k] = self.launched.get(k, 0) + v
+                shapes = {k: {tuple(s) if isinstance(s, list) else s: n for s, n in by}
+                          for k, by in run["shapes"].items()}
+                self.recheck_shapes(shapes, 1234)
+                for shape in shapes[attn]:
+                    self.check_attn_shape(shape, False)
+                for shape in shapes[fused]:
+                    self.check_attn_shape(shape, True)
+
+    def world(self, label, backend, devices, jobs, tag):
+        """Run one world, check that every rank's outputs agree, account it and
+        hold each job's outputs to the single-process references."""
+        t = time.perf_counter()
+        arrays, metas = tp_world(label, backend, devices, jobs, os.path.join(self.work, tag))
+        log(f"  world {label}: {time.perf_counter() - t:.1f} s")
+        tp_same_on_every_rank(label, arrays)
+        self.account(label, metas)
+        a = arrays[0]
+        for i, job in enumerate(jobs):
+            mesh_tag = "x".join(map(str, job["mesh"]))
+            if job["kind"] == "engine":
+                for name in job["requests"]:
+                    self.gate_pair(f"({mesh_tag}) {job['quant']} {name}", job["quant"],
+                                   a[f"{i}/{name}/latents"], a[f"{i}/{name}/audio"],
+                                   self.refs[name])
+                continue
+            for mode in job["modes"]:
+                self.lm_tokens(f"({mesh_tag}) planner codes, decode_attn={mode}",
+                               a[f"{i}/{mode}/tokens"][0], *self.lm_ref[mode])
+        return arrays
+
+    def lm_tokens(self, label, got, ref_toks, gaps):
+        """Greedy tokens equal to the single-process run's until a step whose
+        top-1 / top-2 gap (over the allowed logits' peak) is below check_mega's
+        drift: the first token that differs must be at such a close call
+        (after it the two runs decode different sequences)."""
+        close = [s for s, g in enumerate(gaps) if g < self.mega_drift]
+        equal = next((s for s in range(len(got)) if got[s] != ref_toks[s]), len(got))
+        log(f"  {label}: {equal} of {len(got)} greedy tokens equal the single-process run; "
+            f"{len(close)} of its steps are close calls (gap below check_mega's drift "
+            f"{self.mega_drift:.3e} of the peak"
+            + (f", the first at step {close[0]})" if close else ")")
+            + (f"; the first differing step's gap {gaps[equal]:.3e}" if equal < len(got)
+               else ""))
+        if equal < len(got):
+            require(gaps[equal] < self.mega_drift,
+                    f"phase tp: {label}: token {equal} differs where the single-process "
+                    f"margin {gaps[equal]:.3e} is above the drift")
+
+    def world_one(self):
+        """World 1 over NCCL: the bootstrap and the group code at tp 1, equal
+        to the single-process engine bit for bit."""
+        import numpy as np
+
+        arrays = self.world("1 (nccl)", "nccl", ["cuda:0"],
+                            [self.engine_job((1, 1), "q8_0", "10s")], "w1")
+        ref = self.refs["10s"]
+        require(np.array_equal(arrays[0]["0/10s/latents"], ref.latents)
+                and np.array_equal(arrays[0]["0/10s/audio"], ref.audio_i16),
+                "phase tp: world 1 over NCCL differs from the single-process engine")
+        log("  world 1 (nccl): latents and int16 equal the single-process engine's bit for bit")
+
+    def gloo_worlds(self):
+        """Worlds 2 and 4 over gloo, every rank on cuda:0."""
+        self.world("2 (gloo on cuda:0)", "gloo", ["cuda:0"] * 2,
+                   [self.engine_job((1, 2), "q8_0", "10s"),
+                    self.engine_job((1, 2), "q4_k", "60s"), self.lm_job((1, 2))], "w2")
+        self.world("4 (gloo on cuda:0)", "gloo", ["cuda:0"] * 4,
+                   [self.engine_job((1, 4), "q8_0", "10s"),
+                    self.engine_job((2, 2), "q8_0", "b2"), self.lm_job((1, 4))], "w4")
+
+    def card_world(self, n):
+        """NCCL over ``n`` cards, one a rank: the 10 s request at (1, n), the
+        planner at tp n, and at four cards the batch of two at (2, 2)."""
+        jobs = [self.engine_job((1, n), "q8_0", "10s"), self.lm_job((1, n))]
+        if n == 4:
+            jobs.append(self.engine_job((2, 2), "q8_0", "b2"))
+        self.world(f"{n} (nccl, a card a rank)", "nccl", [f"cuda:{r}" for r in range(n)],
+                   jobs, f"n{n}")
+
+    def run(self):
+        import torch
+        from acestep_tpu_torch.parallel import mesh as pmesh
+
+        free_engine()
+        free, total = torch.cuda.mem_get_info()
+        log(f"device memory free before the worlds: {free / 2**30:.1f} of "
+            f"{total / 2**30:.1f} GiB")
+        self.world_one()
+        self.gloo_worlds()
+        if torch.cuda.device_count() >= 2:
+            self.card_world(min(torch.cuda.device_count(), 4))
+        else:
+            log("  NCCL at a world of 2 or more needs a card a rank: this machine has "
+                f"{torch.cuda.device_count()} card, so that world did not run")
+        self.decoders.clear()
+        free_engine()
+        log(f"phase tp: {time.perf_counter() - self.t0:.1f} s; tier table for 1/2/4/8 "
+            "devices: " + json.dumps({n: dataclasses.asdict(pmesh.tier_for(n))
+                                      for n in (1, 2, 4, 8)}))
+        return self.launched
+
+
+def decode_attn_names():
+    from acestep_tpu_torch.ops.cuda import decode_attn
+
+    return decode_attn.ATTN.name, decode_attn.FUSED.name
+
+
 def run() -> int:
     import numpy as np
     import torch
@@ -3382,6 +3880,10 @@ def run() -> int:
     path10 = [names["q8_0"], unit, trio]
     results, served = {}, {}
     results["10s"], served["10s"] = serve(engine, req, "configs[0] q8_0", 3, path10)
+    # the batch-2 request that phase tp splits over dp, served here in one process
+    req_b2 = dataclasses.replace(req, batch_size=2, style_token_ids=np.repeat(style, 2, 0),
+                                 lyric_token_ids=np.repeat(lyric, 2, 0), seeds=[1, 2])
+    results["b2"], served["b2"] = serve(engine, req_b2, "configs[0] q8_0 batch 2", 1, path10)
     # request A: 10.24 s fills its 256-frame bucket, so no self-attention mask;
     # a second engine object around the weights already on the card
     engine_a = pipeline.AceStepEngine(engine.dit_params, dit_cfg, engine.vae_params, vae_cfg,
@@ -3618,7 +4120,8 @@ def run() -> int:
     check_layers = lm_serving.fuse_serving_params(
         qwen.init_params(QWEN3_0_6B, device="cuda", seed=11, quant="q8_0"))["layers"]
     log(f"28-layer q8_0 weights for the megakernel check drawn in {time.perf_counter() - t:.1f} s")
-    errs[mega_name], mega_bounds28, checked[mega_name] = check_mega(check_layers, QWEN3_0_6B)
+    errs[mega_name], mega_bounds28, checked[mega_name], mega_drift28 = check_mega(
+        check_layers, QWEN3_0_6B)
     del check_layers
     free_engine()
 
@@ -4234,6 +4737,36 @@ def run() -> int:
         + json.dumps({k: round(v, 3) for k, v in memory.items()}))
     log("kernel times are per request: each served shape timed alone (CUDA events, "
         "warm L2) and weighted by its launches in one request of the named path")
+
+    phase("tp")
+    attn_checked = set()
+
+    def check_attn_shape(shape, fused):
+        """Row 9 or 10 against its plain version at a (B, Hq, Hkv, T) a rank
+        launched (a rank's heads under TP), at layers 0 and 27."""
+        name = fused_name if fused else attn_name
+        if (name, shape) in attn_checked:
+            return
+        b, hq, hkv, t_max = shape
+        lengths = [max(1, (t_max - 1) * (i + 1) // b) for i in range(b)]
+        c = attn_case(b, lengths, 88, t_max=t_max, hq=hq, hkv=hkv)
+        for li in (0, 27):
+            tag = f"{name} B={b} Hq={hq} Hkv={hkv} T={t_max} lengths={lengths} layer {li}"
+            if fused:
+                got = decode_attn.decode_attention_fused_stacked(*fused_args(c, li))
+                ref = decode_attn.decode_attention_fused_plain(*fused_args(c, li))
+            else:
+                got = decode_attn.decode_attention_int8_stacked(*attn_args(c, li))
+                ref = decode_attn.decode_attention_plain(*attn_args(c, li))
+            errs[name] = max(errs[name], check_attn_pair(tag, got, ref, fused))
+        attn_checked.add((name, shape))
+
+    launched_tp = TpPhase(results, pipe.params, mega_drift28, recheck_shapes,
+                          check_attn_shape).run()
+    for row in rows:
+        row["launches_tp"] = launched_tp.get(row["name"], 0)
+    log("launches in phase tp's worlds (every rank, summed): "
+        + json.dumps({k: v for k, v in launched_tp.items() if v}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4244,6 +4777,8 @@ def run() -> int:
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
+        return tp_rank_main(sys.argv[2], int(sys.argv[3]))
     threading.Thread(target=_watchdog, daemon=True).start()
     try:
         return run()

@@ -128,7 +128,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
              + [REPO / "tools" / "time_vae_resunit.py", REPO / "tools" / "vae_resunit_errors.py",
                 REPO / "tools" / "time_lm_kernels.py", REPO / "tools" / "time_dit_mega.py",
                 REPO / "tests" / "test_torch_decode_mega_plan.py",
-                REPO / "tests" / "test_torch_dit_mega_plan.py"]
+                REPO / "tests" / "test_torch_dit_mega_plan.py",
+                REPO / "tests" / "torch_parallel_worker.py", REPO / "tools" / "tp_phase.py"]
              + sorted((REPO / "tests").glob("test_torch_cuda_*.py")))
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
@@ -159,7 +160,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/training/lokr.py", "acestep_tpu_torch/training/trainer.py",
                    "acestep_tpu_torch/serving/training_manager.py",
                    "acestep_tpu_torch/serving/dataset_manager.py",
-                   "tests/test_torch_cuda_training.py"):
+                   "tests/test_torch_cuda_training.py",
+                   "acestep_tpu_torch/parallel/__init__.py",
+                   "acestep_tpu_torch/parallel/mesh.py",
+                   "acestep_tpu_torch/parallel/distributed.py",
+                   "acestep_tpu_torch/parallel/sharding.py",
+                   "acestep_tpu_torch/parallel/collective_matmul.py",
+                   "acestep_tpu_torch/parallel/tp.py", "acestep_tpu_torch/parallel/lm_tp.py",
+                   "tests/torch_parallel_worker.py", "tests/test_torch_cuda_parallel.py",
+                   "tools/tp_phase.py"):
         assert module in names, module
     for path in files:
         for name in _imports(path):
