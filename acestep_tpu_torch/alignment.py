@@ -16,6 +16,12 @@ f32 products of the bf16 q and k (f32 matmul, no TF32), divided by
 every length, the sliding mask on sliding layers, as the JAX probe's is; the
 blocked path of ``dit.forward`` from 1536 tokens is not taken, so at 600 s
 each layer makes a [16, 7552, 7552] f32 score tensor (3.6 GB).
+
+On a meshed engine (``group``: the tp group) each rank probes its own heads
+on its shards, with the row-parallel sums of the decoder in between, and the
+map is the mean over layers and the global heads: each rank's sum over its
+heads, summed over the group in rank order in f32, divided once.  The batch
+is whole on every rank, so every rank returns the same map.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from acestep_tpu_torch.config import DiTConfig
 from acestep_tpu_torch.models import dit
 from acestep_tpu_torch.models.stacking import iter_layers
 from acestep_tpu_torch.ops import attention, linear, make_attention_mask, rms_norm, rope_cos_sin
+from acestep_tpu_torch.parallel.distributed import all_reduce
 
 T_RENOISE = 0.3
 
@@ -88,13 +95,15 @@ def cross_attention_maps(params: Dict[str, Any], cfg: DiTConfig, latents: torch.
                          context_latents: torch.Tensor, encoder_hidden_states: torch.Tensor,
                          encoder_attn_mask: Optional[torch.Tensor] = None,
                          t_renoise: float = T_RENOISE,
-                         eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         eps: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Cross-attention map averaged over heads and layers -> [B, Tp, Lc] f32.
 
     ``latents`` [B, T, 64] are the clean latents, ``context_latents`` and
     ``encoder_hidden_states`` [B, Lc, H] the request's; ``eps`` (the latents'
     shape) defaults to :func:`default_eps`.  ``params`` may be unstacked or
-    the engine's stacked (and fused) tree."""
+    the engine's stacked (and fused) tree.  ``group``: the tp group, with
+    ``params`` and ``cfg`` this rank's shards and local heads (module
+    docstring)."""
     params = dit.stack_params(params)
     b, t_len, _ = latents.shape
     patch = cfg.patch_size
@@ -125,6 +134,7 @@ def cross_attention_maps(params: Dict[str, Any], cfg: DiTConfig, latents: torch.
                   if encoder_attn_mask is not None else None)
     sliding_mask = make_attention_mask(tp, tp, sliding_window=cfg.sliding_window, device=dev)
 
+    meshed = group is not None and group.size > 1
     maps = torch.zeros((b, tp, lc), dtype=torch.float32, device=dev)
     n_layers = 0
     for li, p in enumerate(iter_layers(params["layers"])):
@@ -135,16 +145,20 @@ def cross_attention_maps(params: Dict[str, Any], cfg: DiTConfig, latents: torch.
         normed = rms_norm(x, p["self_attn_norm"], cfg.rms_norm_eps)
         normed = normed * (1.0 + scale_msa) + shift_msa
         x = x + dit._self_attention(p["self_attn"], cfg, normed, cos, sin,
-                                    lambda q, k, v, m=sm: attention(q, k, v, mask=m)) * gate_msa
+                                    lambda q, k, v, m=sm: attention(q, k, v, mask=m),
+                                    group) * gate_msa
 
         normed = rms_norm(x, p["cross_attn_norm"], cfg.rms_norm_eps)
-        maps += _cross_attn_probs(p["cross_attn"], cfg, normed, kv[li], cross_mask).mean(dim=1)
-        x = x + dit._cross_attention(p["cross_attn"], cfg, normed, kv[li], cross_mask)
+        probs = _cross_attn_probs(p["cross_attn"], cfg, normed, kv[li], cross_mask)
+        maps += probs.sum(dim=1) if meshed else probs.mean(dim=1)
+        x = x + dit._cross_attention(p["cross_attn"], cfg, normed, kv[li], cross_mask, group)
 
         normed = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         normed = normed * (1.0 + c_scale) + c_shift
-        x = x + dit._mlp(p["mlp"], normed) * c_gate
+        x = x + dit._mlp(p["mlp"], normed, group) * c_gate
         n_layers += 1
+    if meshed:
+        return all_reduce(maps, group) / (n_layers * cfg.num_attention_heads * group.size)
     return maps / n_layers
 
 

@@ -22,7 +22,12 @@ function is the same).
 Under tensor parallelism (``group``: this rank's tp group, parallel/tp.py)
 the blocks run on the rank's column shards of q/k/v and gate/up with the
 local head counts, and o_proj / down_proj are row-parallel: their partial
-products are summed over the group (dit.py:197-339).
+products are summed over the group (dit.py:197-339).  Each column-parallel
+site takes its replicated input through ``distributed.copy_to_group``, and so
+do the q / k norms, replicated weights applied to the rank's heads only: a
+training step's backward then sums their partial gradients over the group,
+and a replicated parameter upstream gets its whole gradient on every rank
+(without it, its gradient would be this rank's heads' share).
 
 Two opt-in switches of :func:`forward` stand for the JAX package's
 environment knobs (dit.py:583-607, qmm.py:348-367):
@@ -63,6 +68,7 @@ from acestep_tpu_torch.ops import (
 )
 from acestep_tpu_torch.ops.qlinear import concat_weights_n
 from acestep_tpu_torch.parallel.collective_matmul import row_parallel_linear
+from acestep_tpu_torch.parallel.distributed import copy_to_group
 
 Params = Dict[str, Any]
 
@@ -84,6 +90,7 @@ def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn, group=None)
     row-parallel (dit.py:197-230)."""
     b, l, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    x = copy_to_group(x, group)
     if "qkv_proj" in p:
         qkv = linear(x, p["qkv_proj"]["kernel"])
         q = qkv[..., : nh * hd].reshape(b, l, nh, hd)
@@ -93,8 +100,8 @@ def _self_attention(p: Params, cfg: DiTConfig, x, cos, sin, attn_fn, group=None)
         q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
         k = linear(x, p["k_proj"]["kernel"]).reshape(b, l, nkv, hd)
         v = linear(x, p["v_proj"]["kernel"]).reshape(b, l, nkv, hd)
-    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
-    k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    q = rms_norm(q, copy_to_group(p["q_norm"], group), cfg.rms_norm_eps).transpose(1, 2)
+    k = rms_norm(k, copy_to_group(p["k_norm"], group), cfg.rms_norm_eps).transpose(1, 2)
     v = v.transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
     out = attn_fn(q, k, v).transpose(1, 2).reshape(b, l, nh * hd)
@@ -118,13 +125,15 @@ def _make_self_attn_fns(cfg: DiTConfig, seq_len: int, kv_valid, device):
             lambda q, k, v: attention(q, k, v, mask=full_mask))
 
 
-def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor):
+def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor, group=None):
     """K/V [B, Hkv, Lc, D] of one layer's cross-attention over the projected
-    condition [B, Lc, H]."""
+    condition [B, Lc, H] (``group``: the local KV heads under tensor
+    parallelism)."""
     b, lc, _ = enc.shape
     hd, nkv = cfg.head_dim, cfg.num_key_value_heads
+    enc = copy_to_group(enc, group)
     k = linear(enc, p["k_proj"]["kernel"]).reshape(b, lc, nkv, hd)
-    k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    k = rms_norm(k, copy_to_group(p["k_norm"], group), cfg.rms_norm_eps).transpose(1, 2)
     v = linear(enc, p["v_proj"]["kernel"]).reshape(b, lc, nkv, hd).transpose(1, 2)
     return k, v
 
@@ -132,14 +141,15 @@ def cross_kv(p: Params, cfg: DiTConfig, enc: torch.Tensor):
 def _cross_attention(p: Params, cfg: DiTConfig, x, kv, mask, group=None):
     b, l, _ = x.shape
     hd, nh = cfg.head_dim, cfg.num_attention_heads
-    q = linear(x, p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
-    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    q = linear(copy_to_group(x, group), p["q_proj"]["kernel"]).reshape(b, l, nh, hd)
+    q = rms_norm(q, copy_to_group(p["q_norm"], group), cfg.rms_norm_eps).transpose(1, 2)
     k, v = kv
     out = attention(q, k, v, mask=mask).transpose(1, 2).reshape(b, l, nh * hd)
     return row_parallel_linear(out, p["o_proj"]["kernel"], group)
 
 
 def _mlp(p: Params, x, group=None):
+    x = copy_to_group(x, group)
     if "gateup_proj" in p:
         gu = linear(x, p["gateup_proj"]["kernel"])
         inter = gu.shape[-1] // 2
@@ -177,10 +187,10 @@ def compute_condition(params: Params, cfg: DiTConfig, encoder_hidden_states,
     return linear(encoder_hidden_states, p["kernel"], p["bias"], int8_act)
 
 
-def compute_all_cross_kv(params: Params, cfg: DiTConfig, enc):
+def compute_all_cross_kv(params: Params, cfg: DiTConfig, enc, group=None):
     """Per-layer cross-attention K/V for a step-constant condition: a list of
-    (k, v) per layer."""
-    return [cross_kv(p["cross_attn"], cfg, enc) for p in iter_layers(params["layers"])]
+    (k, v) per layer (``group``: as :func:`cross_kv`)."""
+    return [cross_kv(p["cross_attn"], cfg, enc, group) for p in iter_layers(params["layers"])]
 
 
 def stack_cross_kv(kv_list) -> Tuple[torch.Tensor, torch.Tensor]:

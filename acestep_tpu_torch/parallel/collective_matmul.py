@@ -10,7 +10,8 @@ qmm kernels on the card) returns.
 A weight that :mod:`sharding` left whole (its K cut would split a quant
 block) meets the local activations [..., K / tp]: the activations are gathered
 in rank order and the whole product computed on every rank, with no
-reduction.
+reduction.  Both carry gradients (``distributed``): the sum passes its
+gradient on to every partial, the gather gives each rank its slice.
 
 :func:`allreduce_matmul` is the JAX package's scaling-book ring on a plain
 2-D weight: the output axis cut into one chunk a rank, each chunk's partial

@@ -25,6 +25,15 @@ rounding once to the partials' dtype (how XLA's CPU all-reduce rounds bf16
 partials, measured on the JAX package's 8-device CPU mesh: equal bit for bit
 at tp 2, 4 and 8).  Under gloo a CUDA tensor is copied to the host for the
 exchange and back, explicitly.
+
+Gradients cross the collectives of a tensor-parallel block as in Megatron:
+``all_reduce`` (the row-parallel sum) passes its gradient on unchanged,
+``copy_to_group`` (the replicated input of a column-parallel site, and a
+replicated weight applied to local heads) is the identity whose gradient is
+the partial gradients all-reduced over the group, and ``all_gather_cat``
+passes back this rank's slice.  Where no gradient is asked for (under
+``torch.no_grad()`` or for a tensor that needs none) they run the plain
+collective: the same bytes as without autograd.
 """
 
 from __future__ import annotations
@@ -126,16 +135,12 @@ def all_gather(x: torch.Tensor, group: Optional[Group]) -> List[torch.Tensor]:
     return [o.view(x.dtype).reshape(x.shape).to(x.device) for o in out]
 
 
-def all_gather_cat(x: torch.Tensor, group: Optional[Group], dim: int = -1) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in rank order (a tiled
-    all-gather: column shards back into global order)."""
+def _gather_cat(x: torch.Tensor, group: Optional[Group], dim: int) -> torch.Tensor:
     parts = all_gather(x, group)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
-    """The sum of every rank's ``x``: f32 in rank order, rounded once to
-    ``x``'s dtype; the same bytes on every rank."""
+def _sum_in_rank_order(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     parts = all_gather(x, group)
     if len(parts) == 1:
         return x
@@ -143,6 +148,80 @@ def all_reduce(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p.float()
     return acc.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The row-parallel sum: every rank's output is the whole sum, so the
+    gradient of each partial is the output's gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_in_rank_order(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """A replicated tensor entering the group's local shards: the identity,
+    whose gradient sums the ranks' partial gradients (each rank's reaches it
+    through its own shards only)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_in_rank_order(grad, ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    """The ranks' shards concatenated along ``dim``; the gradient of this
+    rank's shard is its slice of the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.start, ctx.width = dim, group.index * x.shape[dim], x.shape[dim]
+        return _gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.width), None, None
+
+
+def _needs_grad(x: torch.Tensor, group: Optional[Group]) -> bool:
+    return (group is not None and group.size > 1 and torch.is_grad_enabled()
+            and x.requires_grad)
+
+
+def all_gather_cat(x: torch.Tensor, group: Optional[Group], dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (a tiled
+    all-gather: column shards back into global order); its gradient is this
+    rank's slice."""
+    if _needs_grad(x, group):
+        return _AllGatherCat.apply(x, group, dim % x.dim())
+    return _gather_cat(x, group, dim)
+
+
+def all_reduce(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The sum of every rank's ``x``: f32 in rank order, rounded once to
+    ``x``'s dtype; the same bytes on every rank.  The gradient passes through
+    unchanged."""
+    if _needs_grad(x, group):
+        return _AllReduce.apply(x, group)
+    return _sum_in_rank_order(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """``x`` as it is, replicated on every rank of ``group`` before its
+    column-parallel use; its gradient is the ranks' partial gradients summed
+    in rank order."""
+    if _needs_grad(x, group):
+        return _CopyToGroup.apply(x, group)
+    return x
 
 
 def broadcast(x: torch.Tensor, group: Optional[Group], src_index: int = 0) -> torch.Tensor:

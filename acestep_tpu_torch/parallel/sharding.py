@@ -20,15 +20,21 @@ whole on every rank (the JAX package's replicate rule); the row-parallel
 linear (parallel/collective_matmul.py) takes such a weight as it is.  A
 column-parallel weight must cut: the local head counts (``parallel.tp.local_cfg``)
 rely on it, so an N the tp size does not divide raises.
+
+:func:`cut_specs` reads back which leaves of a rank's tree are cut, and
+:func:`unshard_params` gathers a rank's tree back into the whole one (a JAX
+global array reads whole; here every rank gathers its tp group's shards), so
+a meshed training step's result can be compared and saved.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from acestep_tpu_torch.parallel.distributed import all_gather_cat
 from acestep_tpu_torch.parallel.mesh import Mesh
 from acestep_tpu_torch.quant import QuantTensor
 
@@ -109,6 +115,80 @@ def shard_params(params: Any, mesh: Mesh, path: str = "") -> Any:
     leaf_path = path if isinstance(params, torch.Tensor) or path.endswith("kernel") \
         else path + "/kernel"
     return shard_weight(params, spec_for_path(leaf_path), mesh.tp, mesh.tp_rank)
+
+
+# a row-parallel kernel's column partner in its block, and the factor from
+# the partner's N to the row kernel's K: the row kernel is cut exactly where
+# its K is the partner's local N (kept whole, it is tp times that)
+_ROW_PARTNERS = {"o_proj": (("q_proj", 1),), "down_proj": (("gate_proj", 1), ("gateup_proj", 2))}
+
+
+def _dims(w):
+    """(K, N) of a weight: a QuantTensor's logical shape, a tensor's last two
+    axes (layer-stacked or not)."""
+    return tuple(w.shape) if isinstance(w, QuantTensor) else tuple(w.shape[-2:])
+
+
+def _kernel(x):
+    return x["kernel"] if isinstance(x, dict) else x
+
+
+def _row_is_cut(block: Dict[str, Any], name: str) -> bool:
+    k = _dims(_kernel(block[name]))[0]
+    for partner, factor in _ROW_PARTNERS[name]:
+        if partner in block:
+            return k * factor == _dims(_kernel(block[partner]))[1]
+    raise ValueError(f"cannot tell whether {name} was cut: its block has no "
+                     f"{' or '.join(p for p, _ in _ROW_PARTNERS[name])}")
+
+
+def cut_specs(params: Any, mesh: Mesh, path: str = "", row_cut: Optional[bool] = None) -> Any:
+    """The cut each leaf of this rank's tree (``shard_params`` on ``mesh``)
+    holds, as a tree of the same structure: "col", "row" or "whole" (None
+    where ``params`` has None).  A row-parallel kernel is "whole" where the
+    cut would not have been exact (see :data:`_ROW_PARTNERS`)."""
+    if isinstance(params, dict):
+        rows = ({n: _row_is_cut(params, n) for n in _ROW_PARTNERS if n in params}
+                if mesh.tp > 1 else {})
+        return {k: cut_specs(v, mesh, f"{path}/{k}", rows.get(k, row_cut))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(cut_specs(v, mesh, f"{path}/{i}", row_cut)
+                            for i, v in enumerate(params))
+    if params is None:
+        return None
+    leaf_path = path if isinstance(params, torch.Tensor) or path.endswith("kernel") \
+        else path + "/kernel"
+    spec = spec_for_path(leaf_path) if mesh.tp > 1 else None
+    if spec == "row" and not row_cut:
+        spec = None
+    return spec or "whole"
+
+
+def _gather(w, spec: str, mesh: Mesh):
+    if spec == "whole":
+        return w
+    axis = -1 if spec == "col" else -2
+    if isinstance(w, QuantTensor):
+        k, n = w.shape
+        shape = (k, n * mesh.tp) if spec == "col" else (k * mesh.tp, n)
+        return QuantTensor(w.fmt, shape, **{f: all_gather_cat(a, mesh.tp_group, axis)
+                                            for f, a in w.fields().items()})
+    return all_gather_cat(w, mesh.tp_group, axis)
+
+
+@torch.no_grad()
+def unshard_params(params: Any, mesh: Mesh) -> Any:
+    """The whole tree from this rank's shards: each cut leaf gathered over
+    the tp group in rank order along its cut (every rank of the group calls
+    this together and gets the same tree)."""
+    if mesh.tp == 1:
+        return params
+    from acestep_tpu_torch.weights import tree_leaves, tree_unflatten
+
+    specs = tree_leaves(cut_specs(params, mesh))
+    return tree_unflatten(params, [_gather(w, s, mesh)
+                                   for w, s in zip(tree_leaves(params), specs)])
 
 
 def shard_batch(x: Optional[torch.Tensor], mesh: Mesh, dim: int = 0):

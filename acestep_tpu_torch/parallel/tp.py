@@ -14,7 +14,11 @@ this rank's parameter tree (``sharding.shard_params``):
     (each dp row block on its own dp rank, the latents gathered back in dp
     order), else replicated on every rank (tp.py:89-199);
   * :func:`make_tp_condition`: lyric and timbre encoders tensor-parallel, the
-    Qwen text encoder replicated on every rank (tp.py:202-262).
+    Qwen text encoder replicated on every rank (tp.py:202-262);
+  * :func:`make_tp_train_step`: the full fine-tune step of
+    ``training.flow_matching`` on the rank's shards and dp rows (the JAX
+    package jits ``make_train_step`` on sharded arrays,
+    tests/test_sharding.py:92-121).
 
 SDE draws: the caller passes them (``sde_noise``, global rows; each dp rank
 takes its own) or a generator.  Under a dp split the engine seeds each dp
@@ -32,7 +36,7 @@ from acestep_tpu_torch.config import DiTConfig
 from acestep_tpu_torch.models import dit
 from acestep_tpu_torch.parallel.distributed import all_gather_cat
 from acestep_tpu_torch.parallel.mesh import Mesh
-from acestep_tpu_torch.parallel.sharding import shard_batch
+from acestep_tpu_torch.parallel.sharding import cut_specs, shard_batch
 
 _COVER_KEYS = ("encoder_hidden_states_non_cover", "context_latents_non_cover",
                "encoder_attn_mask_non_cover")
@@ -132,3 +136,36 @@ def make_tp_condition(dit_cfg: DiTConfig, text_cfg, mesh: Mesh):
 
     return run
 
+
+
+def make_tp_train_step(cfg: DiTConfig, optimizer, mesh: Mesh):
+    """``training.flow_matching.make_train_step`` over the mesh:
+    step(params, opt_state, batch, t, noise) -> (params, opt_state, loss).
+
+    ``params`` is this rank's shards of an unfused (per-layer list) float DiT
+    tree (``sharding.shard_params``) and ``opt_state`` its AdamW state
+    (``optimizer.init`` on the same shards).  ``batch``, ``t`` and ``noise``
+    are the whole batch's, as ``make_train_step`` takes them; each dp rank
+    takes its rows.  The ranks agree as ``flow_matching.GradSync`` says; the
+    loss returned is the whole batch's, on every rank.  At one rank this is
+    ``make_train_step`` bit for bit."""
+    from acestep_tpu_torch.training import flow_matching as fm
+    from acestep_tpu_torch.weights import tree_leaves
+
+    cfg_l = local_cfg(cfg, mesh.tp)
+
+    def step(params, opt_state, batch, t, noise):
+        for x in tree_leaves(params):
+            if not isinstance(x, torch.Tensor):
+                raise ValueError("a full fine-tune needs float parameters, got "
+                                 f"{type(x).__name__}")
+        batch = {k: shard_batch(v, mesh) for k, v in batch.items()}
+        t, noise = shard_batch(t, mesh), shard_batch(noise, mesh)
+        sync = fm.GradSync(mesh.dp_group, mesh.tp_group, mesh.world,
+                           tuple(s != "whole" for s in tree_leaves(cut_specs(params, mesh))))
+        return fm.guarded_step(
+            lambda p: fm.flow_matching_loss(p, cfg_l, batch, t, noise, group=mesh.tp_group,
+                                            dp_group=mesh.dp_group),
+            params, opt_state, optimizer, keep_state=True, sync=sync)
+
+    return step

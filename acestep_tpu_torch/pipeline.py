@@ -494,11 +494,11 @@ class AceStepEngine:
         their frame bucket, ``build_condition`` and ``build_context_latents``,
         then ``alignment.cross_attention_maps`` (``eps`` of the padded shape,
         seeded by default).  Returns (item 0's map [Tp, Lc] f32, the lyric
-        token count)."""
+        token count).  Under a mesh every rank calls it with the same request
+        and latents, probes its heads on its DiT shards and returns the same
+        map."""
         from acestep_tpu_torch import alignment
 
-        if self.mesh is not None:
-            raise NotImplementedError("the lyric alignment probe runs on an unmeshed engine")
         if req.lyric_token_ids is None:
             raise ValueError("request has no lyric tokens to align")
         lat = self._tensor(latents)
@@ -508,8 +508,8 @@ class AceStepEngine:
             lat = torch.nn.functional.pad(lat, (0, 0, 0, t - t_valid))
         enc, enc_mask = self.build_condition(req, b)
         ctx = self.build_context_latents(req, b, t, t_valid)
-        maps = alignment.cross_attention_maps(self.dit_params, self.dit_cfg, lat, ctx, enc,
-                                              enc_mask, eps=eps)
+        maps = alignment.cross_attention_maps(self.dit_params, self.run_cfg, lat, ctx, enc,
+                                              enc_mask, eps=eps, group=self.group)
         n_lyric = (int(np.asarray(req.lyric_mask).sum(axis=1)[0]) if req.lyric_mask is not None
                    else int(np.asarray(req.lyric_token_ids).shape[1]))
         return maps[0].cpu().numpy(), n_lyric

@@ -27,18 +27,29 @@ the Adam update before the ``-lr`` scale, ``eps`` is added outside the
 square root, and the moments take the params' dtype.  Scalars are rounded to
 each leaf's dtype before they meet it, as JAX's weak types are.  Leaves are
 updated with ``torch._foreach_*`` in groups of one dtype and device.
+
+Over a (dp, tp) mesh (parallel/tp.make_tp_train_step) every rank runs the
+same step on its shards and its dp rows, and :class:`GradSync` says how the
+ranks agree: the masked loss divides by the mask count of the whole batch
+(summed over dp), the gradients are summed over dp in rank order, the global
+norm sums the tp-sharded leaves' squares over tp and counts every replicated
+leaf once, and the NaN guard's flag is agreed over the whole world before any
+rank branches on it.  A mesh of one rank is the one-process step, bit for
+bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from acestep_tpu_torch.config import DiTConfig
 from acestep_tpu_torch.models import dit
+from acestep_tpu_torch.parallel.distributed import all_reduce
+from acestep_tpu_torch.parallel.mesh import Group
 from acestep_tpu_torch.sampler import SHIFT_TIMESTEPS
 from acestep_tpu_torch.weights import tree_leaves, tree_map, tree_unflatten
 
@@ -73,27 +84,45 @@ def draw(generator: torch.Generator, latents: torch.Tensor,
     return t, noise
 
 
+def _single(group: Optional[Group]) -> bool:
+    return group is None or group.size == 1
+
+
 def flow_matching_loss(params: Dict[str, Any], cfg: DiTConfig, batch: Dict[str, torch.Tensor],
-                       t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+                       t: torch.Tensor, noise: torch.Tensor, *, group: Optional[Group] = None,
+                       dp_group: Optional[Group] = None) -> torch.Tensor:
     """batch: latents [B, T, 64] (x0), context_latents [B, T, ctx],
     encoder_hidden_states [B, Lc, H], encoder_attn_mask [B, Lc] (optional),
     loss_mask [B, T] (optional; 1 = generated frame).  ``t`` [B] and ``noise``
-    [B, T, 64] are the draws.  Returns the scalar f32 loss."""
+    [B, T, 64] are the draws.  Returns the scalar f32 loss.
+
+    ``group``: the tp group (params and ``cfg`` this rank's shards and local
+    heads).  ``dp_group``: the batch is this dp rank's rows, and the loss is
+    its share of the whole batch's: its numerator over the count of the whole
+    batch, so that the shares sum to the one-process loss (a mean of the dp
+    ranks' own means is another number whenever their masks differ)."""
     x0 = batch["latents"].float()
     t_b = t.float()[:, None, None]
     xt = t_b * noise.float() + (1.0 - t_b) * x0
     target = noise.float() - x0
     xt = xt.to(torch.bfloat16)
     enc = dit.compute_condition(params, cfg, batch["encoder_hidden_states"].to(xt.dtype))
-    kv = dit.compute_all_cross_kv(params, cfg, enc)
+    kv = dit.compute_all_cross_kv(params, cfg, enc, group)
     v = dit.forward(params, cfg, xt, t, t, batch["context_latents"], kv,
-                    encoder_attn_mask=batch.get("encoder_attn_mask")).float()
+                    encoder_attn_mask=batch.get("encoder_attn_mask"), group=group).float()
     err = torch.square(v - target)
     mask = batch.get("loss_mask")
+    if _single(dp_group):
+        if mask is not None:
+            m = mask.float()[:, :, None]
+            return torch.sum(err * m) / torch.clamp(torch.sum(m) * x0.shape[-1], min=1.0)
+        return torch.mean(err)
     if mask is not None:
         m = mask.float()[:, :, None]
-        return torch.sum(err * m) / torch.clamp(torch.sum(m) * x0.shape[-1], min=1.0)
-    return torch.mean(err)
+        count = all_reduce(torch.sum(m), dp_group) * x0.shape[-1]
+        return torch.sum(err * m) / torch.clamp(count, min=1.0)
+    count = all_reduce(torch.tensor(float(err.numel()), device=err.device), dp_group)
+    return torch.sum(err) / count
 
 
 def loss_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -162,10 +191,21 @@ class AdamW:
         return AdamWState(0, tree_map(torch.zeros_like, params),
                           tree_map(torch.zeros_like, params))
 
-    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """sqrt of the sum of squares over every leaf (f32, on the device)."""
+    def global_norm(self, grads: List[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                    group: Optional[Group] = None) -> torch.Tensor:
+        """sqrt of the sum of squares over every leaf (f32, on the device).
+        Under tensor parallelism (``group``) the squares of the leaves that
+        ``sharded`` marks (this rank holds a cut of them) are summed over the
+        group, and every other leaf, replicated on each rank, counts once."""
         sums = [torch.sum(torch.square(g.float())) for g in grads]
-        return torch.sqrt(torch.stack(sums).sum())
+        if _single(group):
+            return torch.sqrt(torch.stack(sums).sum())
+        cut = [x for x, c in zip(sums, sharded) if c]
+        whole = [x for x, c in zip(sums, sharded) if not c]
+        total = all_reduce(torch.stack(cut).sum(), group) if cut else sums[0].new_zeros(())
+        if whole:
+            total = total + torch.stack(whole).sum()
+        return torch.sqrt(total)
 
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: AdamWState, norm: float) -> Tuple[List[torch.Tensor], AdamWState]:
@@ -224,23 +264,63 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.01, warmup_steps: i
 # steps
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class GradSync:
+    """How the ranks of a (dp, tp) mesh agree on a step (module docstring):
+    ``dp`` sums the loss shares and the gradients, ``tp`` the squares of the
+    ``sharded`` leaves (one flag per leaf of the trainable tree), ``world``
+    the NaN guard's flag."""
+
+    dp: Optional[Group]
+    tp: Optional[Group]
+    world: Optional[Group]
+    sharded: Tuple[bool, ...]
+
+
+def sum_over(grads: List[torch.Tensor], group: Optional[Group]) -> List[torch.Tensor]:
+    """Each gradient summed over ``group`` in rank order (``all_reduce``'s
+    f32 sum, rounded once), one exchange per dtype and device."""
+    if _single(group):
+        return grads
+    out = list(grads)
+    by: Dict[Tuple, List[int]] = {}
+    for i, g in enumerate(grads):
+        by.setdefault((g.device, g.dtype), []).append(i)
+    for idx in by.values():
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, torch.split(flat, [grads[i].numel() for i in idx])):
+            out[i] = part.view(grads[i].shape)
+    return out
+
+
 def guarded_step(loss_of: Callable[[Any], torch.Tensor], trainable, opt_state: AdamWState,
-                 optimizer: AdamW, keep_state: bool):
+                 optimizer: AdamW, keep_state: bool, sync: Optional[GradSync] = None):
     """loss -> grads -> NaN guard -> clip -> AdamW over ``trainable``'s leaves:
     (new trainable, new state, loss).  A leaf the loss does not reach gets a
     zero gradient (weight decay still moves it, as in optax).  On a non-finite
     gradient the trainable tree is kept; ``keep_state`` keeps the optimizer
     state too (the full step), else the update runs on zeroed gradients and
-    only its state is kept (the adapter steps)."""
+    only its state is kept (the adapter steps).  ``sync``: the mesh's
+    agreement (:class:`GradSync`); the loss returned is then the whole
+    batch's.  The host reads the device once."""
     leaves = [x.detach() for x in tree_leaves(trainable)]
     live = [x.detach().requires_grad_() for x in leaves]
     loss = loss_of(tree_unflatten(trainable, live))
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-    norm = optimizer.global_norm(grads)
-    finite, norm = torch.stack([finite.float(), norm]).tolist()
     loss = loss.detach()
+    if sync is not None:
+        grads, loss = sum_over(grads, sync.dp), all_reduce(loss, sync.dp)
+    bad = (~torch.stack([torch.isfinite(g).all() for g in grads]).all()).float()
+    if sync is not None:
+        # agreed before anyone branches: a rank that updates while another
+        # keeps its state would mix shards of two steps in the next collective
+        bad = all_reduce(bad, sync.world)
+        norm = optimizer.global_norm(grads, sync.sharded, sync.tp)
+    else:
+        norm = optimizer.global_norm(grads)
+    bad, norm = torch.stack([bad, norm]).tolist()
+    finite = bad == 0
     if not finite:
         if keep_state:
             return trainable, opt_state, loss

@@ -298,7 +298,20 @@ Phases, each announced by a timestamped line:
                 tokens equal until a step whose top-1 / top-2 gap is below
                 check_mega's drift; each rank's seconds and peak memory, the
                 kernels launched at every new shape held to their plain
-                versions as in phase check (rows 1, 4, 7-8, 9-10).  With two or
+                versions as in phase check (rows 1, 4, 7-8, 9-10).  Beside the
+                serving: the lyric alignment probe of the 10 s request's
+                latents at tp 1, 2 and 4 (against the one process's probe of
+                the same latents: bit for bit at tp 1, else the map within
+                TP_MAP_ATOL and the score within TP_SCORE_RTOL, the CPU tests'
+                bounds); rank 0's continuous batcher at (2, 2) (the batch of
+                two's items as two requests, merged on rank 0 and broadcast as a
+                fixed-size payload, served by every rank: equal to the world's
+                meshed batch of two bit for bit); two full fine-tune steps
+                (make_tp_train_step) of the full-width DiT cut to
+                TP_TRAIN_LAYERS layers in f32 at (1, 1), (1, 2) and (2, 2),
+                against the one process's make_train_step on the same draws:
+                bit for bit over NCCL at world 1, else the update within
+                TP_UPDATE_TOL and the losses within TP_LOSS_RTOL.  With two or
                 more cards, NCCL over them too (a card a rank)
 Then one {"kernels": [...]} line (each row also with its launches in phase tp,
 "launches_tp"), the nvidia-smi line, and last the result line.
@@ -3287,6 +3300,12 @@ TP_LM_PROMPT = 200             # prompt tokens of the planner's codes phase in p
 TP_LM_STEPS = 24               # its greedy codes (random weights: a close call comes early)
 TP_WITNESS_DRAWS = 3           # noise draws of the waveform witness (TpPhase.gate_pair)
 TP_WITNESS_MARGIN_DB = 3.0     # how far the world's waveform SNR may fall below the witness's
+TP_TRAIN_LAYERS = 2            # the train job's full-width DiT cut to one sliding, one full layer
+TP_TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)   # the CPU tests' (2 steps)
+TP_UPDATE_TOL = 1.5 * 0.0517   # tests/test_torch_training.py's UPDATE_TOL
+TP_LOSS_RTOL = 1e-3            # its per-step loss bound (test_three_steps_match_jax)
+TP_MAP_ATOL, TP_SCORE_RTOL = 2e-3, 5e-3   # tests/test_torch_alignment.py's MAP_ATOL, ENGINE_SCORE_RTOL
+TP_PAYLOAD = 2048              # floats of a merged request broadcast by rank 0's batcher
 
 
 def tp_lm_prompt():
@@ -3312,7 +3331,10 @@ def _shapes_json(shapes):
 
 def tp_engine_job(mesh, job, out, meta):
     """A full-width random engine on the mesh serving ``job``'s requests, the
-    counts reset before each and read after it."""
+    counts reset before each and read after it; the lyric alignment probe of
+    the requests ``job["align"]`` names on their latents; ``job["batcher"]``'s
+    requests through rank 0's batcher (:func:`tp_batcher`)."""
+    import numpy as np
     import torch
     from acestep_tpu_torch import pipeline
 
@@ -3329,8 +3351,220 @@ def tp_engine_job(mesh, job, out, meta):
         out[f"{name}/latents"], out[f"{name}/audio"] = res.latents, res.audio_i16
         meta[name] = {"seconds": time.perf_counter() - t, "launches": launches,
                       "shapes": _shapes_json(shapes), "time_costs": res.time_costs}
+        if name not in job.get("align", ()):
+            continue
+        reset_counts()
+        t = time.perf_counter()
+        r = pipeline.GenerationRequest(**req)
+        out[f"{name}/align_map"], _ = engine.lyric_attention_map(res.latents, r)
+        out[f"{name}/align_stamps"], _ = engine.get_lyric_timestamps(res.latents, r)
+        out[f"{name}/align_score"] = np.float64(engine.get_lyric_score(res.latents, r))
+        torch.cuda.synchronize(mesh.device)
+        launches, shapes = snapshot_counts()
+        meta[f"{name} align"] = {"seconds": time.perf_counter() - t, "launches": launches,
+                                 "shapes": _shapes_json(shapes)}
+    if job.get("batcher"):
+        tp_batcher(engine, mesh, job["batcher"], out, meta)
     del engine
     free_engine()
+
+
+def tp_encode_request(req):
+    """A merged request as rank 0 broadcasts it: [1 (run), batch, style width,
+    lyric width, duration, the seeds at 5..], then from 16 the style ids, their
+    mask, the lyric ids, their mask (a merged request's ids are padded to
+    their token bucket, so the widths travel explicitly; ids < 2^24 are exact
+    in f32)."""
+    import numpy as np
+
+    buf = np.zeros(TP_PAYLOAD, np.float32)
+    parts = [np.asarray(v).ravel() for v in (req.style_token_ids, req.style_mask,
+                                               req.lyric_token_ids, req.lyric_mask)]
+    buf[:5] = (1.0, req.batch_size, req.style_token_ids.shape[1], req.lyric_token_ids.shape[1],
+               req.duration_s)
+    buf[5:5 + len(req.seeds)] = req.seeds
+    flat = np.concatenate(parts)
+    require(16 + flat.size <= TP_PAYLOAD, f"a merged request of {flat.size} ids overflows "
+            f"the {TP_PAYLOAD}-float payload")
+    buf[16:16 + flat.size] = flat
+    return buf
+
+
+def tp_decode_request(buf):
+    import numpy as np
+    from acestep_tpu_torch import pipeline
+
+    b, ws, wl, dur = int(buf[1]), int(buf[2]), int(buf[3]), float(buf[4])
+    sizes = [b * ws, b * ws, b * wl, b * wl]
+    offs = np.cumsum([16] + sizes)
+    sid, smask, lid, lmask = (buf[o:o + n].astype(np.int64).reshape(b, -1)
+                              for o, n in zip(offs, sizes))
+    return pipeline.GenerationRequest(
+        duration_s=dur, durations_s=[dur] * b, batch_size=b, style_token_ids=sid,
+        style_mask=smask.astype(np.int32), lyric_token_ids=lid,
+        lyric_mask=lmask.astype(np.int32), seeds=[int(x) for x in buf[5:5 + b]])
+
+
+def tp_batcher(engine, mesh, reqs, out, meta):
+    """Rank 0's continuous batcher over the mesh (tests/test_distributed_multiproc.py
+    :126-179 in the JAX package): rank 0 merges ``reqs`` and broadcasts each
+    merged request as a fixed-size payload; every other rank loops on the
+    broadcast and runs the same ``generate``; a zero payload ends the loop."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch import pipeline
+    from acestep_tpu_torch.parallel import distributed
+    from acestep_tpu_torch.serving.batcher import ContinuousBatcher
+
+    def bcast(buf):
+        return distributed.broadcast(torch.from_numpy(buf).to(mesh.device),
+                                     mesh.world).cpu().numpy()
+
+    reset_counts()
+    t = time.perf_counter()
+    if mesh.world.index == 0:
+        def run_merged(req):
+            if mesh.device.type == "cuda":
+                torch.cuda.set_device(mesh.device)       # the worker thread's device
+            bcast(tp_encode_request(req))
+            return engine.generate(req)
+
+        bat = ContinuousBatcher(run_merged, max_batch=len(reqs), max_wait_s=5.0).start()
+        futs = [bat.submit(pipeline.GenerationRequest(**dict(
+            r, style_token_ids=np.asarray(r["style_token_ids"]),
+            lyric_token_ids=np.asarray(r["lyric_token_ids"])))) for r in reqs]
+        results = [f.result(timeout=TP_CHILD_S) for f in futs]
+        bat.stop()
+        bcast(np.zeros(TP_PAYLOAD, np.float32))
+        batches = bat.stats["batches"]
+    else:
+        results = []
+        while True:
+            buf = bcast(np.zeros(TP_PAYLOAD, np.float32))
+            if buf[0] < 0.5:
+                break
+            results.append(engine.generate(tp_decode_request(buf)))
+        batches = len(results)
+    torch.cuda.synchronize(mesh.device)
+    launches, shapes = snapshot_counts()
+    out["batcher/latents"] = np.concatenate([r.latents for r in results])
+    out["batcher/audio"] = np.concatenate([r.audio_i16 for r in results])
+    meta["batcher"] = {"seconds": time.perf_counter() - t, "launches": launches,
+                       "shapes": _shapes_json(shapes), "batches": batches}
+
+
+def tp_train_cfg():
+    """The train job's DiT: full width, TP_TRAIN_LAYERS decoder layers, no
+    lyric or timbre encoder (the loss reads neither)."""
+    from acestep_tpu_torch.config import DiTConfig
+
+    return dataclasses.replace(DiTConfig(), num_hidden_layers=TP_TRAIN_LAYERS, layer_types=(),
+                               num_lyric_encoder_hidden_layers=0,
+                               num_timbre_encoder_hidden_layers=0)
+
+
+def tp_train_inputs(device):
+    """(config, the groups the loss reads of an f32 DiT drawn by RandomInit
+    seed 7 as per-layer lists, phase train's batch, two steps' draws made
+    with numpy): the same on every rank and in the one process."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.sampler import SHIFT_TIMESTEPS
+    from acestep_tpu_torch.training.flow_matching import loss_params
+
+    cfg = tp_train_cfg()
+    tree = loss_params(list_tree(RandomInit(torch.device(device), 7, None,
+                                            dtype=torch.float32), cfg))
+    batch = train_batch(cfg, device)
+    rng = np.random.default_rng(21)
+    sched = np.asarray(SHIFT_TIMESTEPS[3.0], np.float32)
+    draws = [(torch.from_numpy(sched[rng.integers(0, sched.size, 2)]).to(device),
+              torch.from_numpy(rng.standard_normal(tuple(batch["latents"].shape))
+                               .astype(np.float32)).to(device)) for _ in range(2)]
+    return cfg, tree, batch, draws
+
+
+def tp_tree_digest(tree):
+    """sha256 of a tree's leaves' bytes, in order, as uint8."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from acestep_tpu_torch.weights import tree_leaves
+
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+def tp_update_rel(got, ref, p0):
+    """(max over leaves of |got update - ref update| / |ref update| (norms, f64
+    on the device), that leaf's name, leaves bit-equal to ``ref``, leaves)."""
+    import torch
+    from acestep_tpu_torch.weights import flatten
+
+    g_f, r_f, a_f = flatten(got), flatten(ref), flatten(p0)
+    worst, name, equal = 0.0, "", 0
+    for n, a in a_f.items():
+        g, r = g_f[n], r_f[n]
+        equal += int(torch.equal(g, r))
+        du = r.double() - a.double()
+        err = float(torch.linalg.vector_norm(g.double() - a.double() - du))
+        rel = err / max(float(torch.linalg.vector_norm(du)), 1e-300) if err else 0.0
+        if rel > worst:
+            worst, name = rel, n
+    return worst, name, equal, len(a_f)
+
+
+def tp_train_job(mesh, job, out, meta):
+    """Two ``make_tp_train_step`` steps of the full-width DiT cut to
+    TP_TRAIN_LAYERS on the rank's shards and dp rows; the whole tree gathered
+    back; rank 0 holds it to the one process's (``job["ref"]``, written by
+    the parent)."""
+    import numpy as np
+    import torch
+    from acestep_tpu_torch.parallel import shard_params
+    from acestep_tpu_torch.parallel.sharding import unshard_params
+    from acestep_tpu_torch.parallel.tp import make_tp_train_step
+    from acestep_tpu_torch.training.flow_matching import make_optimizer
+
+    cfg, tree, batch, draws = tp_train_inputs(mesh.device)
+    opt = make_optimizer(**TP_TRAIN_OPT)
+    params = shard_params(tree, mesh)
+    if mesh.rank != 0:
+        tree = None
+    state = opt.init(params)
+    step = make_tp_train_step(cfg, opt, mesh)
+    reset_counts()
+    t0, secs, losses = time.perf_counter(), [], []
+    for t_d, noise in draws:
+        torch.cuda.synchronize(mesh.device)
+        t = time.perf_counter()
+        params, state, loss = step(params, state, batch, t_d, noise)
+        torch.cuda.synchronize(mesh.device)
+        secs.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    launches, shapes = snapshot_counts()
+    whole = unshard_params(params, mesh)
+    out["train/losses"] = np.asarray(losses, np.float32)
+    out["train/digest"] = tp_tree_digest(whole)
+    run = {"seconds": time.perf_counter() - t0, "launches": launches,
+           "shapes": _shapes_json(shapes), "count": state.count}
+    if mesh.rank == 0:
+        ref = torch.load(job["ref"], map_location=mesh.device)
+        run["update_rel"], run["worst_leaf"], run["equal_leaves"], run["leaves"] = \
+            tp_update_rel(whole, ref["tree"], tree)
+        run["ref_losses"] = ref["losses"]
+    del whole, tree
+    # a third step, warm, timed only
+    torch.cuda.synchronize(mesh.device)
+    t = time.perf_counter()
+    step(params, state, batch, *draws[1])
+    torch.cuda.synchronize(mesh.device)
+    run["step_s"] = secs + [time.perf_counter() - t]
+    meta["train"] = run
 
 
 def tp_lm_job(mesh, job, out, meta):
@@ -3394,7 +3628,7 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
                 f"rank {rank}: the current device is cuda:{torch.cuda.current_device()}, "
                 f"not the mesh's {device}")
         res, m = {}, {}
-        (tp_engine_job if job["kind"] == "engine" else tp_lm_job)(mesh, job, res, m)
+        TP_JOBS[job["kind"]](mesh, job, res, m)
         out.update({f"{i}/{k}": v for k, v in res.items()})
         meta[str(i)] = m
     meta["seconds"] = time.perf_counter() - t0
@@ -3404,6 +3638,9 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
         json.dump(meta, f)
     torch.distributed.destroy_process_group()
     return 0
+
+
+TP_JOBS = {"engine": tp_engine_job, "lm": tp_lm_job, "train": tp_train_job}
 
 
 def tp_world(label, backend, devices, jobs, work):
@@ -3536,7 +3773,8 @@ class TpPhase:
     single-process results of the earlier phases (``results``), phase
     lm_engine's planner (``lm_params``) and the drift check_mega measured
     at 28 layers (the plain decode step's x on the card against the CPU,
-    max error over the peak)."""
+    max error over the peak); the train job's one-process steps are run
+    here first (:meth:`train_reference`)."""
 
     def __init__(self, results, lm_params, mega_drift, recheck_shapes, check_attn_shape):
         import numpy as np
@@ -3555,6 +3793,8 @@ class TpPhase:
                                     style_token_ids=np.repeat(style, 2, 0).tolist(),
                                     lyric_token_ids=np.repeat(lyric, 2, 0).tolist(),
                                     seeds=[1, 2])}
+        # the items of the batch of two, each alone: rank 0's batcher merges them
+        self.batcher_items = [dict(r10, seeds=[s]) for s in self.requests["b2"]["seeds"]]
         self.refs = {"10s": results["10s"][-1], "60s": results["60s q4_k"][-1],
                      "b2": results["b2"][-1]}
         self.modes = ("pallas", "fused")
@@ -3563,14 +3803,120 @@ class TpPhase:
         attn, fused = decode_attn_names()
         need10 = ["q8_0_qmm", "vae_res_unit", "vae_res_trio"]
         self.need = {"10s": need10, "b2": need10, "60s": need10 + ["q4_k_qmm"],
-                     "pallas": [attn, "q8_0_qmm"], "fused": [fused, "q8_0_qmm"]}
+                     "pallas": [attn, "q8_0_qmm"], "fused": [fused, "q8_0_qmm"],
+                     "10s align": ["q8_0_qmm"], "batcher": need10, "train": []}
+        self.train_ref = os.path.join(self.work, "train_ref.pt")
+        self.train_reference()
 
-    def engine_job(self, mesh, quant, name):
-        return {"kind": "engine", "mesh": list(mesh), "quant": quant,
-                "requests": {name: self.requests[name]}}
+    def train_reference(self):
+        """The train job's two steps in one process (``make_train_step``),
+        written for the ranks to hold their trees to."""
+        import torch
+        from acestep_tpu_torch.training.flow_matching import make_optimizer, make_train_step
+        from acestep_tpu_torch.weights import tree_leaves
+
+        cfg, tree, batch, draws = tp_train_inputs("cuda")
+        opt = make_optimizer(**TP_TRAIN_OPT)
+        state, step, secs, losses = opt.init(tree), make_train_step(cfg, opt), [], []
+        for t_d, noise in draws + draws[1:]:          # the third step, warm, timed only
+            sync()
+            t = time.perf_counter()
+            new, new_state, loss = step(tree, state, batch, t_d, noise)
+            sync()
+            secs.append(time.perf_counter() - t)
+            if len(losses) < len(draws):
+                tree, state = new, new_state
+                losses.append(float(loss))
+        del new, new_state
+        os.makedirs(self.work, exist_ok=True)
+        torch.save({"tree": tree, "losses": losses}, self.train_ref)
+        n = sum(x.numel() for x in tree_leaves(tree))
+        log(f"  train reference: one process, the full-width DiT cut to {TP_TRAIN_LAYERS} "
+            f"layers, f32, {n / 1e6:.1f} M parameters, batch 2 x {TRAIN_T} frames: steps "
+            + ", ".join(f"{x:.3f}" for x in secs) + f" s (the first a warm-up, the third "
+            f"timed only); losses {losses}")
+        del tree, state
+        free_engine()
+
+    def engine_job(self, mesh, quant, name, align=False, batcher=False):
+        job = {"kind": "engine", "mesh": list(mesh), "quant": quant,
+               "requests": {name: self.requests[name]}}
+        if align:
+            job["align"] = [name]
+        if batcher:
+            job["batcher"] = self.batcher_items
+        return job
 
     def lm_job(self, mesh):
         return {"kind": "lm", "mesh": list(mesh), "modes": list(self.modes)}
+
+    def train_job(self, mesh):
+        return {"kind": "train", "mesh": list(mesh), "ref": self.train_ref}
+
+    def one_process(self, quant):
+        """The one-process engine of ``quant`` (seed 0, as every rank's),
+        built once at a time."""
+        from acestep_tpu_torch import pipeline
+
+        if quant not in self.decoders:
+            self.decoders.clear()
+            free_engine()
+            self.decoders[quant] = pipeline.build_random_engine(device="cuda", quant=quant,
+                                                                seed=0)
+        return self.decoders[quant]
+
+    def check_align(self, label, quant, name, a, i, exact):
+        """The world's probe of its own latents against the one-process
+        engine's probe of the same latents: bit for bit at tp 1, else the map
+        within TP_MAP_ATOL and the score within TP_SCORE_RTOL."""
+        import numpy as np
+        from acestep_tpu_torch import alignment, pipeline
+        from acestep_tpu_torch.constants import LATENT_RATE
+
+        dec = self.one_process(quant)
+        ref_map, n = dec.lyric_attention_map(a[f"{i}/{name}/latents"],
+                                             pipeline.GenerationRequest(**self.requests[name]))
+        ref_stamps = alignment.token_timestamps(ref_map, n,
+                                                dec.dit_cfg.patch_size / LATENT_RATE)
+        ref_score = alignment.alignment_score(ref_map, n)
+        got, stamps = a[f"{i}/{name}/align_map"], a[f"{i}/{name}/align_stamps"]
+        score = float(a[f"{i}/{name}/align_score"])
+        err = float(np.abs(got - ref_map).max())
+        rel = abs(score - ref_score) / abs(ref_score)
+        log(f"  {label} alignment probe of {n} lyric tokens: map [{got.shape[0]}, "
+            f"{got.shape[1]}] within {err:.3e} of the one process's probe of these latents "
+            f"(peak {float(ref_map.max()):.3e}), score {score:.6f} / {ref_score:.6f} "
+            f"(rel {rel:.2e}), stamps: {int((stamps == ref_stamps).sum())} of {n} equal, "
+            f"at most {float(np.abs(stamps - ref_stamps).max()):.2f} s apart; held "
+            + ("bit for bit" if exact else f"map <= {TP_MAP_ATOL}, score <= {TP_SCORE_RTOL}"))
+        if exact:
+            require(np.array_equal(got, ref_map) and np.array_equal(stamps, ref_stamps)
+                    and score == ref_score,
+                    f"phase tp: {label} alignment probe differs from the one process's")
+        else:
+            require(err <= TP_MAP_ATOL and rel <= TP_SCORE_RTOL,
+                    f"phase tp: {label} alignment probe outside the CPU tests' bounds")
+
+    def check_train(self, label, run, a, i, exact):
+        """The world's tree after two steps against the one process's: bit for
+        bit at one rank, else the update within TP_UPDATE_TOL and each loss
+        within TP_LOSS_RTOL."""
+        losses, ref = [float(x) for x in a[f"{i}/train/losses"]], run["ref_losses"]
+        log(f"  {label} train: steps " + ", ".join(f"{x:.3f}" for x in run["step_s"])
+            + f" s (the first a warm-up, the third timed only), count {run['count']}; losses "
+            f"{losses} against the one process's {ref}; leaves bit-equal {run['equal_leaves']} "
+            f"of {run['leaves']}; the update {run['update_rel']:.3e} of the one process's "
+            f"(norm per leaf, the largest: {run['worst_leaf'] or 'none'}); held "
+            + ("bit for bit" if exact else f"update <= {TP_UPDATE_TOL:.4f}, losses <= "
+                                           f"{TP_LOSS_RTOL}"))
+        require(run["count"] == 2, f"phase tp: {label} train: count {run['count']}")
+        if exact:
+            require(run["equal_leaves"] == run["leaves"] and losses == ref,
+                    f"phase tp: {label} train step differs from the one process's")
+        else:
+            require(run["update_rel"] <= TP_UPDATE_TOL and all(
+                abs(x - r) <= TP_LOSS_RTOL * abs(r) for x, r in zip(losses, ref)),
+                f"phase tp: {label} train step outside the CPU tests' bounds")
 
     def gate_pair(self, label, quant, got_lat, got_audio, ref):
         """The latents against the single-process engine's, and the waveform
@@ -3582,14 +3928,8 @@ class TpPhase:
         the waveform for such a difference alone; the world's waveform SNR
         must be at least the lowest draw's less TP_WITNESS_MARGIN_DB."""
         import numpy as np
-        from acestep_tpu_torch import pipeline
 
-        if quant not in self.decoders:
-            self.decoders.clear()
-            free_engine()
-            self.decoders[quant] = pipeline.build_random_engine(device="cuda", quant=quant,
-                                                                seed=0)
-        dec = self.decoders[quant]
+        dec = self.one_process(quant)
         mine = engine_decode(dec, got_lat)
         for what, g, r in (("latents", got_lat, ref.latents), ("waveform", got_audio, mine)):
             cos, snr = gate(r.astype(np.float64), g.astype(np.float64))
@@ -3643,9 +3983,12 @@ class TpPhase:
                 for shape in shapes[fused]:
                     self.check_attn_shape(shape, True)
 
-    def world(self, label, backend, devices, jobs, tag):
+    def world(self, label, backend, devices, jobs, tag, exact=False):
         """Run one world, check that every rank's outputs agree, account it and
-        hold each job's outputs to the single-process references."""
+        hold each job's outputs to the single-process references (``exact``:
+        the probe and the train step bit for bit)."""
+        import numpy as np
+
         t = time.perf_counter()
         arrays, metas = tp_world(label, backend, devices, jobs, os.path.join(self.work, tag))
         log(f"  world {label}: {time.perf_counter() - t:.1f} s")
@@ -3654,11 +3997,28 @@ class TpPhase:
         a = arrays[0]
         for i, job in enumerate(jobs):
             mesh_tag = "x".join(map(str, job["mesh"]))
+            if job["kind"] == "train":
+                self.check_train(f"({mesh_tag})", metas[0][str(i)]["train"], a, i, exact)
+                continue
             if job["kind"] == "engine":
                 for name in job["requests"]:
                     self.gate_pair(f"({mesh_tag}) {job['quant']} {name}", job["quant"],
                                    a[f"{i}/{name}/latents"], a[f"{i}/{name}/audio"],
                                    self.refs[name])
+                for name in job.get("align", ()):
+                    self.check_align(f"({mesh_tag}) {job['quant']} {name}", job["quant"],
+                                     name, a, i, exact)
+                if job.get("batcher"):
+                    served = [m[str(i)]["batcher"]["batches"] for m in metas]
+                    same = all(np.array_equal(a[f"{i}/batcher/{k}"], a[f"{i}/b2/{k}"])
+                               for k in ("latents", "audio"))
+                    log(f"  ({mesh_tag}) rank 0's batcher: {len(job['batcher'])} requests in "
+                        f"{served[0]} merged batch, served by the ranks {served} times; "
+                        "latents and int16 " + ("equal" if same else "NOT equal")
+                        + " to the meshed batch of two bit for bit")
+                    require(served == [1] * len(metas) and same,
+                            f"phase tp: ({mesh_tag}) rank 0's batcher: batches {served}, "
+                            "or its result differs from the meshed batch of two")
                 continue
             for mode in job["modes"]:
                 self.lm_tokens(f"({mesh_tag}) planner codes, decode_attn={mode}",
@@ -3689,7 +4049,8 @@ class TpPhase:
         import numpy as np
 
         arrays = self.world("1 (nccl)", "nccl", ["cuda:0"],
-                            [self.engine_job((1, 1), "q8_0", "10s")], "w1")
+                            [self.engine_job((1, 1), "q8_0", "10s", align=True),
+                             self.train_job((1, 1))], "w1", exact=True)
         ref = self.refs["10s"]
         require(np.array_equal(arrays[0]["0/10s/latents"], ref.latents)
                 and np.array_equal(arrays[0]["0/10s/audio"], ref.audio_i16),
@@ -3699,18 +4060,23 @@ class TpPhase:
     def gloo_worlds(self):
         """Worlds 2 and 4 over gloo, every rank on cuda:0."""
         self.world("2 (gloo on cuda:0)", "gloo", ["cuda:0"] * 2,
-                   [self.engine_job((1, 2), "q8_0", "10s"),
-                    self.engine_job((1, 2), "q4_k", "60s"), self.lm_job((1, 2))], "w2")
+                   [self.engine_job((1, 2), "q8_0", "10s", align=True),
+                    self.engine_job((1, 2), "q4_k", "60s"), self.lm_job((1, 2)),
+                    self.train_job((1, 2))], "w2")
         self.world("4 (gloo on cuda:0)", "gloo", ["cuda:0"] * 4,
-                   [self.engine_job((1, 4), "q8_0", "10s"),
-                    self.engine_job((2, 2), "q8_0", "b2"), self.lm_job((1, 4))], "w4")
+                   [self.engine_job((1, 4), "q8_0", "10s", align=True),
+                    self.engine_job((2, 2), "q8_0", "b2", batcher=True), self.lm_job((1, 4)),
+                    self.train_job((2, 2))], "w4")
 
     def card_world(self, n):
-        """NCCL over ``n`` cards, one a rank: the 10 s request at (1, n), the
-        planner at tp n, and at four cards the batch of two at (2, 2)."""
-        jobs = [self.engine_job((1, n), "q8_0", "10s"), self.lm_job((1, n))]
+        """NCCL over ``n`` cards, one a rank: the 10 s request at (1, n) with
+        its alignment probe, the planner at tp n, the train job at (1, n), and
+        at four cards the batch of two at (2, 2) beside rank 0's batcher and
+        the train job at (2, 2) instead."""
+        jobs = [self.engine_job((1, n), "q8_0", "10s", align=True), self.lm_job((1, n))]
         if n == 4:
-            jobs.append(self.engine_job((2, 2), "q8_0", "b2"))
+            jobs.append(self.engine_job((2, 2), "q8_0", "b2", batcher=True))
+        jobs.append(self.train_job((2, 2) if n == 4 else (1, n)))
         self.world(f"{n} (nccl, a card a rank)", "nccl", [f"cuda:{r}" for r in range(n)],
                    jobs, f"n{n}")
 

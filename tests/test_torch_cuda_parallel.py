@@ -19,6 +19,14 @@ heads), drawn from seeds on the card, against the same in this process:
     peak (the decode-attention kernels' bound, tests/test_torch_cuda_decode.py),
     their argmax equal.
 
+Each world also takes two full fine-tune steps (``make_tp_train_step``) of an
+f32 DiT drawn from a seed on the card, against ``make_train_step`` in this
+process on the same inputs: at world 1 the losses and the tree equal bit for
+bit; at world 2 every rank's tree equal, the update within
+tests/test_torch_training.py's UPDATE_TOL (the norm of the difference of a
+leaf's update over the norm of the one process's, the largest) and each loss
+within its per-step bound (1e-3).
+
 And the kernels at the shard shapes those worlds launch, against their plain
 versions: the q8_0 dequant-matmul at N / 2 and K / 2 of the DiT's linears
 (tests/test_torch_cuda_kernels.py's bound), decode attention at 8 query and 4
@@ -43,7 +51,7 @@ from acestep_tpu_torch.serving import lm as lm_serving
 
 # by path: the card's machine runs this file without the repository's conftest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_parallel_worker import World, card_dit  # noqa: E402
+from torch_parallel_worker import CARD_TRAIN_OPT, World, card_dit, card_train  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +65,8 @@ CARD_LM = QwenConfig(vocab_size=4096, hidden_size=512, num_hidden_layers=2,
                      head_dim=128)
 BF16_COS, BF16_REL_MAX = 0.9995, 4 * 2.0 ** -7
 LOGIT_REL = 2e-2
+UPDATE_TOL = 1.5 * 0.0517     # tests/test_torch_training.py's UPDATE_TOL
+LOSS_RTOL = 1e-3
 QMM_ATOL = QMM_RTOL = 1e-2
 ATTN_TOL = 2e-2
 
@@ -87,6 +97,22 @@ class _OneProcess:
                                            decode_mega="0", decode_attn="pallas")
         return logits.cpu().numpy()
 
+    @staticmethod
+    def train(dev):
+        """(losses, the tree's leaves by name, the initial leaves) of two
+        ``make_train_step`` steps."""
+        from acestep_tpu_torch import weights
+        from acestep_tpu_torch.training import flow_matching as fm
+
+        cfg, tree, batch, draws = card_train(dataclasses.asdict(CARD_DIT), dev, 9)
+        p0 = {n: v.cpu().numpy() for n, v in weights.flatten(tree).items()}
+        opt = fm.make_optimizer(**CARD_TRAIN_OPT)
+        state, step, losses = opt.init(tree), fm.make_train_step(cfg, opt), []
+        for t, noise in draws:
+            tree, state, loss = step(tree, state, batch, t, noise)
+            losses.append(np.float32(loss.item()))
+        return losses, {n: v.cpu().numpy() for n, v in weights.flatten(tree).items()}, p0
+
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
@@ -101,10 +127,13 @@ def worlds(tmp_path_factory):
         cases = {"dit": dict(kind="card_dit", mesh=mesh, cfg=dataclasses.asdict(CARD_DIT),
                              seed=3),
                  "lm": dict(kind="card_lm", mesh=mesh, cfg=dataclasses.asdict(CARD_LM),
-                            seed=5)}
+                            seed=5),
+                 "train": dict(kind="card_train", mesh=mesh, cfg=dataclasses.asdict(CARD_DIT),
+                               seed=9)}
         out[world] = World(str(tmp_path_factory.mktemp(f"card{world}")), world, [mesh], cases,
                            timeout_s=300, backend=backend, device="cuda:0").wait()
-    return {"dit": _OneProcess.dit(dev), "lm": _OneProcess.lm(dev)}, out
+    return {"dit": _OneProcess.dit(dev), "lm": _OneProcess.lm(dev),
+            "train": _OneProcess.train(dev)}, out
 
 
 def _same_on_every_rank(ranks, key):
@@ -117,6 +146,28 @@ def test_world_one_over_nccl_equals_one_process(worlds):
     ref, out = worlds
     np.testing.assert_array_equal(out[1][0]["dit/out"], ref["dit"])
     np.testing.assert_array_equal(out[1][0]["lm/logits"], ref["lm"])
+
+
+def test_world_one_train_step_over_nccl_equals_one_process(worlds):
+    ref, out = worlds
+    losses, tree, _ = ref["train"]
+    assert [out[1][0][f"train/loss{i}"] for i in range(2)] == losses
+    for name, leaf in tree.items():
+        np.testing.assert_array_equal(out[1][0][f"train/param/{name}"], leaf, err_msg=name)
+
+
+def test_world_two_train_step(worlds):
+    ref, out = worlds
+    losses, tree, p0 = ref["train"]
+    for i, want in enumerate(losses):
+        got = float(_same_on_every_rank(out[2], f"train/loss{i}"))
+        assert abs(got - float(want)) <= LOSS_RTOL * abs(float(want)), (i, got, want)
+    worst = 0.0
+    for name, leaf in tree.items():
+        got = _same_on_every_rank(out[2], f"train/param/{name}").astype(np.float64)
+        du = leaf.astype(np.float64) - p0[name]
+        worst = max(worst, float(np.linalg.norm(got - p0[name] - du) / np.linalg.norm(du)))
+    assert worst <= UPDATE_TOL, worst
 
 
 def test_world_two_dit_forward(worlds):

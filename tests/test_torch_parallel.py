@@ -24,7 +24,15 @@ output equal bit for bit, and:
   * a tiny meshed engine (text2music at batch 2, split over dp at (2, 2); the
     cover switch; base-model CFG) against the same engine in one process
     within 2e-3 of the latents' peak, as tests/test_distributed_multiproc.py
-    holds the JAX package's meshed engine.
+    holds the JAX package's meshed engine;
+  * rank 0's continuous batcher over the mesh (the worker's ``batcher`` case,
+    the protocol of tests/test_distributed_multiproc.py:126-179): two
+    requests merge into one batch, which every rank serves, its latents
+    within 2e-3 relative of the one-process engine's batch of two;
+  * the collectives' gradients (``copy_to_group``, ``all_reduce``,
+    ``all_gather_cat``) in a small Megatron block against the unsharded
+    block's autograd in f32 (1e-5: the sums reassociate), and the block
+    without autograd equal to it bit for bit.
 """
 
 import dataclasses
@@ -76,6 +84,9 @@ DECODE_T, DECODE_CHUNK = 44, 8
 DECODE_WB = {2: 1, 4: 3}       # window batch by world size
 GLOBAL_LOCALS = {2: [2, 1], 4: [4, 2, 1]}   # LOCAL_WORLD_SIZE for global_mesh
 AMP = 4.0                      # the stand-in's peak passes 0.99: the segments rescale
+BATCH_STYLE = np.arange(16).reshape(2, 8) % 250    # the JAX multi-process test's STYLE
+BATCH_SEEDS = [3, 4]
+GRAD_RTOL = 1e-5
 
 
 def _port(cfg):
@@ -267,6 +278,24 @@ def _requests():
     }
 
 
+def _grad_inputs():
+    rng = np.random.default_rng(5)
+    return {k: rng.standard_normal(shape).astype(np.float32) * scale
+            for k, shape, scale in (("x", (3, 64), 1.0), ("w1", (64, 32), 0.2),
+                                    ("gain", (8,), 1.0), ("w2", (32, 16), 0.2),
+                                    ("w3", (32, 16), 0.2), ("r", (3, 16), 1.0))}
+
+
+def _grad_reference(c):
+    """The worker's ``grads`` block unsharded, and its gradients."""
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in c.items() if k != "r"}
+    h = torch.tanh(t["x"] @ t["w1"])
+    h = (h.reshape(h.shape[0], -1, 8) * t["gain"]).reshape(h.shape)
+    y = h @ t["w2"] + h @ t["w3"]
+    grads = torch.autograd.grad((y * torch.from_numpy(c["r"])).sum(), list(t.values()))
+    return dict({k: g.numpy() for k, g in zip(t, grads)}, y=y.detach().numpy())
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case: (reference, each rank's outputs).  The worlds are spawned
@@ -279,6 +308,7 @@ def runs(tmp_path_factory):
                      text_cfg=dataclasses.asdict(ENGINE_TEXT))
     cases, parts = {w: {} for w in MESHES}, {}
     ids = rng.integers(0, QWEN_TP.vocab_size, (2, 9))
+    grad_in = _grad_inputs()
     x = rng.standard_normal((3, 64)).astype(np.float32)
     w = rng.standard_normal((64, 32)).astype(np.float32)
     for world, meshes in MESHES.items():
@@ -292,6 +322,10 @@ def runs(tmp_path_factory):
                                                  requests=_requests(), **engine_kw)
             cases[world][f"qwen_{tag}"] = dict(kind="qwen", mesh=(dp, tp), seed=2, ids=ids,
                                                cfg=dataclasses.asdict(QWEN_TP))
+            cases[world][f"batcher_{tag}"] = dict(kind="batcher", mesh=(dp, tp),
+                                                  style=BATCH_STYLE, seeds=BATCH_SEEDS,
+                                                  duration_s=10.0, **engine_kw)
+            cases[world][f"grads_{tag}"] = dict(kind="grads", mesh=(dp, tp), **grad_in)
     for world, meshes in MESHES.items():
         dp, tp = meshes[0]
         cases[world][f"global_{world}"] = dict(kind="global", mesh=(dp, tp),
@@ -326,6 +360,10 @@ def runs(tmp_path_factory):
     for name, (req, _) in _requests().items():
         res = single.generate(tpipeline.GenerationRequest(**req))
         refs[f"engine/{name}"] = (res.latents, res.audio_i16)
+    refs["batcher"] = single.generate(tpipeline.GenerationRequest(
+        duration_s=10.0, durations_s=[10.0, 10.0], batch_size=2, style_token_ids=BATCH_STYLE,
+        style_mask=np.ones_like(BATCH_STYLE), seeds=BATCH_SEEDS)).latents
+    refs["grads"] = _grad_reference(grad_in)
     ranks = {wd: worlds[wd].wait() for wd in MESHES}
     refs["bad_address"] = bad_address.communicate(timeout=120)
     return refs, {name: ranks[wd] for wd in MESHES for name in cases[wd]}
@@ -415,3 +453,32 @@ def test_initialize_raises_on_a_bad_address(runs):
     refs, _ = runs
     out, _ = refs["bad_address"]
     assert "RAISED" in out, out
+
+
+@pytest.mark.parametrize("tag", ["1x2", "1x4", "2x2"])
+def test_rank0_batcher_over_the_mesh(runs, tag):
+    """Rank 0 merges the two requests into one batch and broadcasts it; every
+    rank serves it (the others through the payload); the merged latents are
+    within the JAX multi-process test's 2e-3 of the one-process batch of two."""
+    refs, ranks = runs
+    outs = ranks[f"batcher_{tag}"]
+    assert [int(r[f"batcher_{tag}/batches"]) for r in outs] == [1] * len(outs)
+    lat = _outputs(ranks, f"batcher_{tag}", "latents")
+    assert lat.shape == refs["batcher"].shape
+    err = np.abs(lat - refs["batcher"]).max() / (np.abs(refs["batcher"]).max() + 1e-9)
+    assert err < 2e-3, f"batched meshed result diverges: rel={err:.2e}"
+
+
+@pytest.mark.parametrize("tag", ["1x2", "1x4", "2x2"])
+@pytest.mark.parametrize("key", ["y", "x", "gain", "w1", "w2", "w3"])
+def test_collective_gradients_match_unsharded(runs, tag, key):
+    """``copy_to_group`` (x and the replicated gain on the rank's columns),
+    ``all_reduce`` (row-parallel w2) and ``all_gather_cat`` (the whole w3)
+    carry the unsharded block's gradients; without autograd the block gives
+    the same bytes."""
+    refs, ranks = runs
+    got = _outputs(ranks, f"grads_{tag}", key)
+    np.testing.assert_allclose(got, refs["grads"][key], rtol=GRAD_RTOL,
+                               atol=GRAD_RTOL * np.abs(refs["grads"][key]).max())
+    if key == "y":
+        np.testing.assert_array_equal(_outputs(ranks, f"grads_{tag}", "y_nograd"), got)

@@ -29,6 +29,31 @@ world 4 forms (1, 4) and then (2, 2).
     vocab-sharded head, CFG pairing,
     the codes phase's reduced head with per-row forced EOS, and the prefix
     flow (prefill, grow, extend, broadcast, decode) (tests/test_lm_tp.py);
+  * the full fine-tune step over the mesh (``make_tp_train_step``) at (1, 2),
+    (1, 4) and (2, 2): two steps (the first at warm-up lr 0) on the JAX
+    draws, the whole tree gathered back (``unshard_params``) against the JAX
+    package's unsharded ``make_train_step`` within
+    tests/test_torch_training.py's FULL_TOL (tree) and UPDATE_TOL (update),
+    the jitted step that test_three_steps_match_jax[full] holds the port's
+    one-process step to and those bounds were set against (the eager step
+    costs ~45 s of op-by-op compiles here; measured against it the meshed
+    trees part by 0.029 / 0.120 / 0.029 and the updates by 0.0085 / 0.035 /
+    0.0099, against the jitted one by 0.058 / 0.184 / 0.038 and 0.022 /
+    0.052 / 0.022);
+    the first step's loss against the port's one-process loss on the batch
+    whose items have uneven loss masks, at that file's per-step loss bound;
+    a NaN in dp rank 0's rows keeps the params and the optimizer state on
+    every rank.  The DiT is that file's TINY with four query and four KV
+    heads (tp 4 must divide both).  At a two-layer, 64-wide DiT the JAX
+    package's own jitted and eager steps part by 0.212 on the tree metric
+    (its zero-initialised ``scale_shift_table`` holds only the update, so one
+    element whose Adam ratio turns over sets the max), above FULL_TOL, which
+    was set at TINY; at TINY with four heads they part by 0.063;
+  * the lyric alignment probe on a meshed q8_0 engine (eight query and four
+    KV heads) at (1, 2), (1, 4) and (2, 2): its map against the JAX probe on
+    the unsharded engine within tests/test_torch_alignment.py's MAP_ATOL,
+    its score within ENGINE_SCORE_RTOL, its stamps within one patch of the
+    JAX ones (90% equal), as that file holds the one-process engine;
   * every rank's output equal bit for bit.
 """
 
@@ -39,17 +64,29 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 from jax.sharding import Mesh
 
+from acestep_tpu import alignment as jalign
+from acestep_tpu import pipeline as jpipeline
 from acestep_tpu import sampler as jsampler
 from acestep_tpu.config import DiTConfig, QwenConfig
 from acestep_tpu.models import dit as jdit
 from acestep_tpu.models import qwen as jqwen
 from acestep_tpu.parallel.lm_tp import LMTPContext as JLMTPContext
 from acestep_tpu.parallel.tp import make_tp_dit_forward, make_tp_sampler
-from acestep_tpu.quant import QuantTensor, quantize_tree
+from acestep_tpu.quant import QuantTensor, quantize_tree, quantize_tree_jax
 from acestep_tpu.serving import lm as jlm
-from tests.test_torch_models import assert_bf16_close
+from acestep_tpu.training import flow_matching as jfm
+from acestep_tpu_torch import weights
+from acestep_tpu_torch.config import DiTConfig as TDiTConfig
+from acestep_tpu_torch.training import flow_matching as tfm
+from tests.test_pipeline import TINY_DIT, TINY_TEXT
+from tests.test_torch_alignment import ENGINE_SCORE_RTOL, MAP_ATOL, STAMP_EQUAL_SHARE
+from tests.test_torch_models import (KERNEL_GAIN, SLICE_VAE, _quant_policy, _scale_kernels,
+                                     _vae_params, assert_bf16_close)
+from tests.test_torch_training import (FULL_TOL, TINY as TRAIN_TINY, UPDATE_TOL, _batch,
+                                       _tree_rel, _update_rel)
 from tests.torch_parallel_worker import World
 
 # o_proj / down_proj K = 1024: 256 a rank at tp 4, whole q4_k super-blocks
@@ -75,6 +112,12 @@ ULENGTHS = np.asarray([3, 2], np.int32)
 CODES = dict(temperature=0.0, max_new_tokens=12, allowed_range=(200, 280), eos_token=3)
 FORCED = np.asarray([8, 5], np.int32)
 PREFIX_IDS, SUFFIX = [3, 14, 15, 92, 6, 53, 5, 8], [9, 7, 1]
+TP_MESHES = [(1, 2), (1, 4), (2, 2)]
+TRAIN_DIT = dataclasses.replace(TRAIN_TINY, num_attention_heads=4, num_key_value_heads=4)
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+LOSS_RTOL = 1e-3         # tests/test_torch_training.py::test_three_steps_match_jax, each step
+ALIGN_DIT = dataclasses.replace(TINY_DIT, num_attention_heads=8, num_key_value_heads=4)
+ALIGN_T = 250            # 10 s in a 256-frame bucket
 
 
 def _jmesh(dp, tp):
@@ -182,6 +225,81 @@ def _jax_prefix(mesh):
     return np.asarray(toks), np.asarray(n), total
 
 
+@jax.jit
+def _jit_draws(key):
+    """The jitted step's own draws for ``key`` (flow_matching.py:43-45)."""
+    k_t, k_n = jax.random.split(key)
+    return (jfm.sample_discrete_timesteps(k_t, 2),
+            jax.random.normal(k_n, (2, 8, TRAIN_DIT.audio_acoustic_hidden_dim), jnp.float32))
+
+
+def _train_inputs():
+    """The float tree, each step's (batch, t, noise) from the JAX keys, the
+    NaN step (item 0, dp rank 0's rows at dp 2) and the keys."""
+    params = jax.jit(lambda k: jdit.init_params(k, TRAIN_DIT, dtype=jnp.float32))(
+        jax.random.key(0))
+    keys = [jax.random.key(100 + i) for i in range(2)]
+    steps = [(_batch(i),) + tuple(np.asarray(x) for x in _jit_draws(k))
+             for i, k in enumerate(keys)]
+    nan = _batch(0)
+    nan["latents"][0, 0, 0] = np.nan
+    return params, steps, (nan,) + steps[0][1:], keys
+
+
+def _jax_train(params, steps, keys):
+    """The JAX package's unsharded jitted step on the same draws: (tree, losses)."""
+    opt = jfm.make_optimizer(**TRAIN_OPT)
+    step = jfm.make_train_step(TRAIN_DIT, opt, jit=True)
+    tree, state, losses = params, opt.init(params), []
+    for (b, _, _), key in zip(steps, keys):
+        tree, state, loss = step(tree, state, {k: jnp.asarray(v) for k, v in b.items()}, key)
+        losses.append(float(loss))
+    return tree, losses
+
+
+def _align_inputs():
+    """The probe's engine trees (q8_0, as tests/test_torch_models.jax_params
+    makes them, at ALIGN_DIT) and request, latents and the JAX draw."""
+    k1, k2, k3 = jax.random.split(jax.random.key(3), 3)
+    rng = np.random.default_rng(3)
+
+    def sampler(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    dp = quantize_tree_jax(_scale_kernels(jdit.init_params(k1, ALIGN_DIT, sampler=sampler),
+                                          KERNEL_GAIN), "q8_0", policy=_quant_policy)
+    tp = quantize_tree_jax(_scale_kernels(jqwen.init_params(k3, TINY_TEXT, sampler=sampler),
+                                          KERNEL_GAIN), "q8_0", policy=_quant_policy)
+    vp = _vae_params(k2, SLICE_VAE, rng)
+    rng = np.random.default_rng(7)
+    lat = rng.standard_normal((1, ALIGN_T, ALIGN_DIT.audio_acoustic_hidden_dim)).astype(np.float32)
+    req = dict(duration_s=10.0, style_token_ids=rng.integers(0, TINY_TEXT.vocab_size, (1, 20)),
+               lyric_token_ids=rng.integers(0, TINY_TEXT.vocab_size, (1, 40)), seeds=[1])
+    eps = np.asarray(jax.random.normal(jax.random.key(0), (1, 256, lat.shape[-1]), jnp.float32))
+    return (dp, tp, vp), req, lat, eps
+
+
+def _jax_align(trees, req, lat):
+    """The JAX engine's probe on the unsharded trees: (item 0's map, stamps,
+    score), as its ``get_lyric_timestamps`` / ``get_lyric_score`` compute
+    them (pipeline.py:940-996), the map once."""
+    dp, tp, vp = trees
+    eng = jpipeline.AceStepEngine(dp, ALIGN_DIT, vp, SLICE_VAE, tp, TINY_TEXT)
+    jreq = jpipeline.GenerationRequest(**req)
+    t = jpipeline.bucket_frames(ALIGN_T)
+    pad = jnp.pad(jnp.asarray(lat), ((0, 0), (0, t - ALIGN_T), (0, 0)))
+    enc, enc_mask = eng.build_condition(jreq, 1)
+    ctx = eng.build_context_latents(jreq, 1, t, ALIGN_T)
+    probe = jax.jit(jalign.cross_attention_maps, static_argnums=(1,))
+    maps = np.asarray(probe(eng.dit_params, ALIGN_DIT, pad, ctx, enc, enc_mask)[0], np.float32)
+    n_lyric = np.asarray(req["lyric_token_ids"]).shape[1]
+    stamps = jalign.token_timestamps(maps, n_lyric, ALIGN_DIT.patch_size / 25.0)
+    return maps, stamps, jalign.alignment_score(maps, n_lyric)
+
+
+ALIGN_LINES, ALIGN_COUNTS = ["first line", "second line", "third"], [14, 13, 13]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case: (JAX reference, each rank's port outputs).  The worlds are
@@ -203,6 +321,18 @@ def runs(tmp_path_factory):
         cases[world_of[mesh]][name] = dict(kind="lm_generate", mesh=mesh,
                                            cfg=dataclasses.asdict(cfg),
                                            params=_np_tree(_lm_params(cfg, key, fmt)), **c)
+    train_params, train_steps, nan_step, train_keys = _train_inputs()
+    align_trees, align_req, align_lat, align_eps = _align_inputs()
+    for dp, tp in TP_MESHES:
+        cases[world_of[(dp, tp)]][f"train_{dp}x{tp}"] = dict(
+            kind="train", mesh=(dp, tp), cfg=dataclasses.asdict(TRAIN_DIT), opt=TRAIN_OPT,
+            params=_np_tree(train_params), steps=train_steps, nan_step=nan_step)
+        cases[world_of[(dp, tp)]][f"align_{dp}x{tp}"] = dict(
+            kind="align", mesh=(dp, tp), dit=_np_tree(align_trees[0]),
+            text=_np_tree(align_trees[1]), vae=_np_tree(align_trees[2]),
+            dit_cfg=dataclasses.asdict(ALIGN_DIT), text_cfg=dataclasses.asdict(TINY_TEXT),
+            vae_cfg=dataclasses.asdict(SLICE_VAE), request=align_req, latents=align_lat,
+            eps=align_eps, lines=ALIGN_LINES, counts=ALIGN_COUNTS)
     total = 128
     cases[4]["lm_prefix"] = dict(kind="lm_prefix", mesh=(1, 4), cfg=dataclasses.asdict(LM),
                                  params=_np_tree(_lm_params(LM, 0)), ids=PREFIX_IDS,
@@ -235,6 +365,13 @@ def runs(tmp_path_factory):
     toks, n, jtotal = _jax_prefix((1, 4))
     assert jtotal == total
     refs["lm_prefix"] = (toks, n)
+    refs["train"] = _jax_train(train_params, train_steps, train_keys) + (train_params,)
+    b, t, noise = train_steps[0]
+    refs["train_loss0"] = float(tfm.flow_matching_loss(
+        weights.from_jax_numpy(_np_tree(train_params)), TDiTConfig(**dataclasses.asdict(TRAIN_DIT)),
+        {k: torch.from_numpy(v) for k, v in b.items()}, torch.from_numpy(t),
+        torch.from_numpy(noise)))
+    refs["align"] = _jax_align(align_trees, align_req, align_lat)
     ranks = {w: worlds[w].wait() for w in MESHES}
     return refs, {name: ranks[w] for w in MESHES for name in cases[w]}
 
@@ -276,3 +413,78 @@ def test_lm_tokens_equal_jax_tp(runs, name):
         got = _outputs(ranks, name, "tokens")
         assert got[0, 8] == CODES["eos_token"] and got[1, 5] == CODES["eos_token"]
         assert ((got[0, :8] >= 200) & (got[0, :8] < 280)).all()
+
+
+def _whole_tree(ranks, name, like):
+    """The case's gathered tree (``param/<name>`` outputs) in ``like``'s
+    structure, checked equal on every rank."""
+    flat = {n: torch.from_numpy(_outputs(ranks, name, f"param/{n}"))
+            for n, v in weights.flatten(like).items() if v is not None}
+
+    def build(t, path=""):
+        if isinstance(t, dict):
+            return {k: build(v, f"{path}/{k}" if path else k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [build(v, f"{path}/{i}") for i, v in enumerate(t)]
+        return None if t is None else flat[path]
+
+    return build(like)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_meshed_train_step_matches_jax(runs, mesh):
+    refs, ranks = runs
+    name = f"train_{mesh[0]}x{mesh[1]}"
+    jtree, jlosses, tree0 = refs["train"]
+    got = _whole_tree(ranks, name, weights.from_jax_numpy(_np_tree(tree0)))
+    for i, jl in enumerate(jlosses):
+        tl = float(_outputs(ranks, name, f"loss{i}"))
+        assert abs(tl - jl) <= LOSS_RTOL * abs(jl), (i, tl, jl)
+    assert int(_outputs(ranks, name, "count")) == 2
+    err = _tree_rel(got, jtree)
+    assert err <= FULL_TOL, err
+    upd = _update_rel(got, jtree, tree0)
+    assert upd <= UPDATE_TOL, upd
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_meshed_loss_divides_by_the_whole_mask(runs, mesh):
+    """The first step's loss (the initial params) against the port's loss in
+    one process on the same batch: at dp 2 the two items sit on two ranks
+    with uneven loss masks (8 and 5 frames), and a mean of the ranks' own
+    means parts from it by 3.7% (1.7419 against 1.6796)."""
+    refs, ranks = runs
+    got = float(_outputs(ranks, f"train_{mesh[0]}x{mesh[1]}", "loss0"))
+    assert abs(got - refs["train_loss0"]) <= LOSS_RTOL * abs(refs["train_loss0"]), \
+        (got, refs["train_loss0"])
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_meshed_nan_guard_agreed_on_every_rank(runs, mesh):
+    """A NaN in item 0 (dp rank 0's rows at dp 2): every rank returns its
+    params and optimizer state unchanged, count included, and the NaN loss."""
+    _, ranks = runs
+    name = f"train_{mesh[0]}x{mesh[1]}"
+    assert np.isnan(_outputs(ranks, name, "nan_loss"))
+    assert all(int(r[f"{name}/nan_kept"]) == 1 for r in ranks[name])
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_meshed_alignment_probe_matches_jax(runs, mesh):
+    refs, ranks = runs
+    name = f"align_{mesh[0]}x{mesh[1]}"
+    ref_map, ref_stamps, ref_score = refs["align"]
+    got = _outputs(ranks, name, "map")
+    assert got.shape == ref_map.shape
+    err = float(np.abs(got - ref_map).max())
+    assert err <= MAP_ATOL, err
+    score = float(_outputs(ranks, name, "score"))
+    assert abs(score - ref_score) <= ENGINE_SCORE_RTOL * abs(ref_score), (score, ref_score)
+    stamps = _outputs(ranks, name, "stamps")
+    patch_s = ALIGN_DIT.patch_size / 25.0
+    assert stamps.shape == ref_stamps.shape == (40,)
+    assert np.abs(stamps - ref_stamps).max() <= patch_s + 1e-9
+    assert np.mean(np.abs(stamps - ref_stamps) < 1e-9) >= STAMP_EQUAL_SHARE
+    lrc = str(_outputs(ranks, name, "lrc"))
+    assert lrc.count("\n") == 2 and lrc.startswith("[00:")
+    assert int(_outputs(ranks, name, "n_lyric")) == 40

@@ -129,7 +129,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 REPO / "tools" / "time_lm_kernels.py", REPO / "tools" / "time_dit_mega.py",
                 REPO / "tests" / "test_torch_decode_mega_plan.py",
                 REPO / "tests" / "test_torch_dit_mega_plan.py",
-                REPO / "tests" / "torch_parallel_worker.py", REPO / "tools" / "tp_phase.py"]
+                REPO / "tests" / "torch_parallel_worker.py", REPO / "tools" / "tp_phase.py",
+                REPO / "tools" / "tp_grad_f32.py"]
              + sorted((REPO / "tests").glob("test_torch_cuda_*.py")))
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
@@ -168,7 +169,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/parallel/collective_matmul.py",
                    "acestep_tpu_torch/parallel/tp.py", "acestep_tpu_torch/parallel/lm_tp.py",
                    "tests/torch_parallel_worker.py", "tests/test_torch_cuda_parallel.py",
-                   "tools/tp_phase.py"):
+                   "tools/tp_phase.py", "acestep_tpu_torch/models/dit.py",
+                   "acestep_tpu_torch/pipeline.py", "tools/tp_grad_f32.py"):
         assert module in names, module
     for path in files:
         for name in _imports(path):

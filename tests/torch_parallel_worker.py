@@ -11,6 +11,12 @@ arrays and parameter trees whose quantized weights are objects with ``fmt``,
 ``shape`` and the field arrays, which ``weights.from_jax_numpy`` reads).  The
 rank computes every case of every mesh and writes ``rank{RANK}.npz`` with one
 array per case output.  It imports torch and the port only: no JAX.
+
+The ``batcher`` case is the port's copy of the JAX package's rank-0 batcher
+(tests/test_distributed_multiproc.py:126-179): rank 0 merges requests through
+``ContinuousBatcher`` and broadcasts each merged request as a fixed-size
+payload; every other rank loops on the broadcast and runs the same
+``generate``; a stop payload ends the loop.
 """
 
 from __future__ import annotations
@@ -36,8 +42,13 @@ from acestep_tpu_torch.parallel import tp as ptp  # noqa: E402
 from acestep_tpu_torch.parallel.collective_matmul import (  # noqa: E402
     allreduce_matmul, row_parallel_linear)
 from acestep_tpu_torch.parallel.lm_tp import LMTPContext  # noqa: E402
+from acestep_tpu_torch.parallel.sharding import unshard_params  # noqa: E402
 from acestep_tpu_torch.serving import kv_cache as kvc  # noqa: E402
 from acestep_tpu_torch.serving import lm as lm_serving  # noqa: E402
+from acestep_tpu_torch.serving.batcher import ContinuousBatcher  # noqa: E402
+from acestep_tpu_torch.training import flow_matching as fm  # noqa: E402
+
+_ENGINES = {}      # (mesh, engine fields) -> the engine, shared by the cases of a mesh
 
 
 def _cfg(kind, d):
@@ -113,17 +124,166 @@ def _decodes(c, mesh, out):
             out[f"seg{j}_scale_wb{wb}"] = np.float32(scale)
 
 
+def _engine(c, mesh):
+    """The tiny random engine of ``c``'s fields on the mesh, built once."""
+    key = (mesh.dp, mesh.tp, c.get("quant"), c["seed"], repr(c["dit_cfg"]),
+           repr(c["vae_cfg"]), repr(c["text_cfg"]))
+    if key not in _ENGINES:
+        _ENGINES[key] = pipeline.build_random_engine(
+            device="cpu", quant=c.get("quant"), seed=c["seed"],
+            dit_cfg=_cfg("DiTConfig", c["dit_cfg"]), vae_cfg=_cfg("VAEConfig", c["vae_cfg"]),
+            text_cfg=_cfg("QwenConfig", c["text_cfg"]), mesh=mesh)
+    return _ENGINES[key]
+
+
 def case_engine(c, mesh, out):
     """A tiny random engine on the mesh serving each request."""
-    eng = pipeline.build_random_engine(
-        device="cpu", quant=c.get("quant"), seed=c["seed"],
-        dit_cfg=_cfg("DiTConfig", c["dit_cfg"]), vae_cfg=_cfg("VAEConfig", c["vae_cfg"]),
-        text_cfg=_cfg("QwenConfig", c["text_cfg"]), mesh=mesh)
+    eng = _engine(c, mesh)
     for name, (req, noise) in c["requests"].items():
         res = eng.generate(pipeline.GenerationRequest(**req),
                            noise=None if noise is None else _t(noise))
         out[f"{name}_latents"] = res.latents
         out[f"{name}_audio"] = res.audio_i16
+
+
+PAYLOAD = 256      # floats of a broadcast request (the JAX test's PAY)
+
+
+def encode_request(req) -> np.ndarray:
+    """A merged request as the fixed-size payload: [1 (run), batch, width,
+    seeds at 3.., the padded style ids at 16.., then their mask].  A merged
+    request's ids are padded to their token bucket, so the width travels
+    explicitly."""
+    buf = np.zeros(PAYLOAD, np.float32)
+    ids, mask = np.asarray(req.style_token_ids), np.asarray(req.style_mask)
+    buf[0], buf[1], buf[2] = 1.0, req.batch_size, ids.shape[1]
+    buf[3:3 + len(req.seeds)] = req.seeds
+    buf[16:16 + ids.size] = ids.ravel()
+    buf[16 + ids.size:16 + 2 * ids.size] = mask.ravel()
+    return buf
+
+
+def decode_request(buf: np.ndarray, duration_s: float):
+    b, w = int(buf[1]), int(buf[2])
+    ids = buf[16:16 + b * w].astype(np.int64).reshape(b, w)
+    mask = buf[16 + b * w:16 + 2 * b * w].astype(np.int32).reshape(b, w)
+    return pipeline.GenerationRequest(duration_s=duration_s, durations_s=[duration_s] * b,
+                                      batch_size=b, style_token_ids=ids, style_mask=mask,
+                                      seeds=[int(s) for s in buf[3:3 + b]])
+
+
+def case_batcher(c, mesh, out):
+    """Rank 0's batcher over the mesh (module docstring): two requests of
+    one style row each, merged into one batch and served by every rank."""
+    eng, world = _engine(c, mesh), mesh.world
+    style, dur = np.asarray(c["style"]), c["duration_s"]
+
+    def bcast(buf):
+        return distributed.broadcast(_t(buf), world).numpy()
+
+    if world.index == 0:
+        def run_merged(req):
+            bcast(encode_request(req))
+            return eng.generate(req)
+
+        bat = ContinuousBatcher(run_merged, max_batch=2, max_wait_s=5.0).start()
+        futs = [bat.submit(pipeline.GenerationRequest(
+            duration_s=dur, batch_size=1, style_token_ids=style[i:i + 1],
+            style_mask=np.ones((1, style.shape[1]), np.int32), seeds=[c["seeds"][i]]))
+            for i in range(style.shape[0])]
+        parts = [f.result(timeout=120) for f in futs]
+        bat.stop()
+        bcast(np.zeros(PAYLOAD, np.float32))                  # stop
+        out["batches"] = np.int32(bat.stats["batches"])
+        out["latents"] = np.concatenate([p.latents for p in parts], axis=0)
+        return
+    served = []
+    while True:
+        buf = bcast(np.zeros(PAYLOAD, np.float32))
+        if buf[0] < 0.5:
+            break
+        served.append(eng.generate(decode_request(buf, dur)))
+    out["batches"] = np.int32(len(served))
+    out["latents"] = np.concatenate([r.latents for r in served], axis=0)
+
+
+def case_grads(c, mesh, out):
+    """The three collectives' gradients in a Megatron block: x replicated
+    into a column-parallel w1 (``copy_to_group``), a replicated scale on the
+    rank's columns (``copy_to_group``), a row-parallel w2 (``all_reduce``) and
+    a whole w3 on the gathered columns (``all_gather_cat``)."""
+    g = mesh.tp_group
+    n = c["w1"].shape[1] // mesh.tp
+    x, gain = _t(c["x"]).requires_grad_(), _t(c["gain"]).requires_grad_()
+    w1 = _t(c["w1"][:, g.index * n:(g.index + 1) * n]).requires_grad_()
+    w2 = _t(c["w2"][g.index * n:(g.index + 1) * n]).requires_grad_()
+    w3 = _t(c["w3"]).requires_grad_()
+
+    def block(x):
+        h = torch.tanh(distributed.copy_to_group(x, g) @ w1)
+        h = (h.reshape(h.shape[0], -1, gain.shape[0]) * distributed.copy_to_group(gain, g)
+             ).reshape(h.shape)
+        return distributed.all_reduce(h @ w2, g) + distributed.all_gather_cat(h, g) @ w3
+
+    y = block(x)
+    loss = (y * _t(c["r"])).sum()
+    gx, ggain, g1, g2, g3 = torch.autograd.grad(loss, [x, gain, w1, w2, w3])
+    out["y"], out["x"], out["gain"], out["w3"] = (y.detach().numpy(), gx.numpy(),
+                                                  ggain.numpy(), g3.numpy())
+    out["w1"] = distributed.all_gather_cat(g1, g, dim=1).numpy()
+    out["w2"] = distributed.all_gather_cat(g2, g, dim=0).numpy()
+    with torch.no_grad():      # no gradient asked: the plain collectives, the same bytes
+        out["y_nograd"] = block(x).numpy()
+
+
+def _train_batch(b):
+    return {k: _t(v) for k, v in b.items()}
+
+
+def case_train(c, mesh, out):
+    """``make_tp_train_step`` on the rank's shards of a float DiT: its steps'
+    losses and the whole tree after them (``unshard_params``), then a step on
+    a batch with a NaN in dp rank 0's rows: params and state kept on every
+    rank."""
+    cfg = _cfg("DiTConfig", c["cfg"])
+    opt = fm.make_optimizer(**c["opt"])
+    params = shard_params(weights.from_jax_numpy(c["params"]), mesh)
+    state = opt.init(params)
+    step = ptp.make_tp_train_step(cfg, opt, mesh)
+    for i, (batch, t, noise) in enumerate(c["steps"]):
+        params, state, loss = step(params, state, _train_batch(batch), _t(t), _t(noise))
+        out[f"loss{i}"] = np.float32(loss.item())
+    for name, leaf in weights.flatten(unshard_params(params, mesh)).items():
+        out[f"param/{name}"] = leaf.numpy()
+    out["count"] = np.int32(state.count)
+    batch, t, noise = c["nan_step"]
+    new, new_state, loss = step(params, state, _train_batch(batch), _t(t), _t(noise))
+    out["nan_loss"] = np.float32(loss.item())
+    out["nan_kept"] = np.int32(new is params and new_state is state
+                               and new_state.count == len(c["steps"]))
+
+
+def case_align(c, mesh, out):
+    """The lyric alignment probe on an engine of ``c``'s trees on the mesh:
+    item 0's map, the stamps and LRC, the score."""
+    eng = pipeline.AceStepEngine(
+        weights.from_jax_numpy(c["dit"]), _cfg("DiTConfig", c["dit_cfg"]),
+        weights.from_jax_numpy(c["vae"]), _cfg("VAEConfig", c["vae_cfg"]),
+        weights.from_jax_numpy(c["text"]), _cfg("QwenConfig", c["text_cfg"]), device="cpu",
+        mesh=mesh)
+    req = pipeline.GenerationRequest(**c["request"])
+    eps = _t(c["eps"])
+    probe = eng.lyric_attention_map
+
+    def recorded(*args, **kw):         # the map the score reads, kept
+        out["map"], out["n_lyric"] = probe(*args, **kw)
+        return out["map"], out["n_lyric"]
+
+    eng.lyric_attention_map = recorded
+    out["score"] = np.float64(eng.get_lyric_score(c["latents"], req, eps=eps))
+    eng.lyric_attention_map = probe
+    stamps, lrc = eng.get_lyric_timestamps(c["latents"], req, c["lines"], c["counts"], eps=eps)
+    out["stamps"], out["lrc"] = stamps, np.asarray(lrc)
 
 
 def case_qwen(c, mesh, out):
@@ -231,9 +391,56 @@ def case_card_lm(c, mesh, out):
     out["logits"] = logits.cpu().numpy()
 
 
-CASES = {"global": case_global, "reduce": case_reduce, "decode": case_decode, "engine": case_engine, "qwen": case_qwen,
-         "dit": case_dit, "sampler": case_sampler, "lm_generate": case_lm_generate,
-         "lm_prefix": case_lm_prefix, "card_dit": case_card_dit, "card_lm": case_card_lm}
+CARD_TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def card_train(cfg_d, device, seed):
+    """(config, the groups the loss reads of an f32 DiT drawn on ``device``
+    from ``seed`` as per-layer lists, a batch of two whose second item's last
+    16 frames are out of the loss, two steps' draws), the inputs made with
+    numpy: tests/test_torch_cuda_parallel.py makes the same in one process."""
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+    from acestep_tpu_torch.sampler import SHIFT_TIMESTEPS
+
+    cfg = _cfg("DiTConfig", cfg_d)
+    tree = RandomInit(torch.device(device), seed, None, dtype=torch.float32).dit(cfg)
+    tree["layers"] = unstack_layer_params(tree["layers"])
+    rng = np.random.default_rng(seed)
+    b, t, lc = 2, 64, 20
+    batch = {"latents": rng.standard_normal((b, t, cfg.audio_acoustic_hidden_dim)),
+             "context_latents": rng.standard_normal((b, t, cfg.context_dim)),
+             "encoder_hidden_states": rng.standard_normal((b, lc, cfg.hidden_size)),
+             "loss_mask": np.ones((b, t))}
+    batch["loss_mask"][1, -16:] = 0.0
+    batch = {k: _t(v.astype(np.float32)).to(device) for k, v in batch.items()}
+    sched = np.asarray(SHIFT_TIMESTEPS[3.0], np.float32)
+    draws = [(_t(sched[rng.integers(0, sched.size, b)]).to(device),
+              _t(rng.standard_normal((b, t, cfg.audio_acoustic_hidden_dim))
+                 .astype(np.float32)).to(device)) for _ in range(2)]
+    return cfg, fm.loss_params(tree), batch, draws
+
+
+def case_card_train(c, mesh, out):
+    """Two ``make_tp_train_step`` steps of ``card_train``'s DiT on the card:
+    the losses and the whole tree after them."""
+    cfg, tree, batch, draws = card_train(c["cfg"], mesh.device, c["seed"])
+    opt = fm.make_optimizer(**CARD_TRAIN_OPT)
+    params = shard_params(tree, mesh)
+    state = opt.init(params)
+    step = ptp.make_tp_train_step(cfg, opt, mesh)
+    for i, (t, noise) in enumerate(draws):
+        params, state, loss = step(params, state, batch, t, noise)
+        out[f"loss{i}"] = np.float32(loss.item())
+    for name, leaf in weights.flatten(unshard_params(params, mesh)).items():
+        out[f"param/{name}"] = leaf.cpu().numpy()
+
+
+CASES = {"global": case_global, "reduce": case_reduce, "decode": case_decode,
+         "engine": case_engine, "batcher": case_batcher, "grads": case_grads,
+         "qwen": case_qwen, "dit": case_dit, "sampler": case_sampler, "train": case_train,
+         "align": case_align, "lm_generate": case_lm_generate, "lm_prefix": case_lm_prefix,
+         "card_dit": case_card_dit, "card_lm": case_card_lm, "card_train": case_card_train}
 
 
 class World:

@@ -13,7 +13,11 @@ each world's ranks are children of chip_smoke.py, every rank's outputs are
 held equal, latents to the one process at the Q8_0 gate, the waveform to the
 one process's decode of those latents and, within a margin, to the one
 process's waveform as far as a noise witness says it can come, the planner's
-greedy codes to the one process's.  Every dequant-matmul, res-unit / trio and
+greedy codes to the one process's, the alignment probe of the 10 s latents
+to the one process's probe of them, rank 0's batcher (at (2, 2)) to the meshed
+batch of two, and two full fine-tune steps of the full-width DiT cut to two
+layers (make_tp_train_step, f32) to the one process's make_train_step on the
+same draws.  Every dequant-matmul, res-unit / trio and
 decode-attention shape a rank launched that the script's phase check did not
 is held to its plain version here too.  The planner's tokens are held against
 ``--drift`` (the x drift chip_smoke.py's check_mega measures at 28 layers,
