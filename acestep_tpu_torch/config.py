@@ -92,7 +92,7 @@ class QwenConfig:
         return cls(**_known_fields(cls, d))
 
 
-# the two LM planner sizes the reference ships (Qwen3-0.6B / 1.7B fine-tunes)
+# the LM planner sizes (Qwen3-0.6B / 1.7B / 4B fine-tunes)
 QWEN3_0_6B = QwenConfig(
     hidden_size=1024, num_hidden_layers=28, num_attention_heads=16,
     num_key_value_heads=8, intermediate_size=3072,
@@ -100,6 +100,10 @@ QWEN3_0_6B = QwenConfig(
 QWEN3_1_7B = QwenConfig(
     hidden_size=2048, num_hidden_layers=28, num_attention_heads=16,
     num_key_value_heads=8, intermediate_size=6144,
+)
+QWEN3_4B = QwenConfig(
+    hidden_size=2560, num_hidden_layers=36, num_attention_heads=32,
+    num_key_value_heads=8, intermediate_size=9728,
 )
 
 

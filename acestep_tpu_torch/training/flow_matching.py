@@ -157,7 +157,8 @@ class AdamWState:
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """``clip_by_global_norm(clip_norm)`` then ``adamw(schedule, b1, b2, eps,
-    weight_decay)`` with the warmup-cosine schedule (init 0, end 0)."""
+    weight_decay)`` with the warmup-cosine schedule (init 0, end
+    ``end_value``)."""
 
     lr: float = 1e-4
     weight_decay: float = 0.01
@@ -167,6 +168,7 @@ class AdamW:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    end_value: float = 0.0
 
     def __post_init__(self):
         if self.total_steps - self.warmup_steps <= 0:
@@ -174,8 +176,9 @@ class AdamW:
                              f"{self.total_steps} and {self.warmup_steps}")
 
     def schedule(self, count: int) -> float:
-        """optax.warmup_cosine_decay_schedule(0, lr, warmup, total) at ``count``,
-        in f32 as optax computes it."""
+        """optax.warmup_cosine_decay_schedule(0, lr, warmup, total, end_value)
+        at ``count``, in f32 as optax computes it (at ``end_value`` 0 the
+        decay is the cosine itself: ``1 * cosine + 0`` is exact)."""
         f = np.float32
         w = self.warmup_steps
         if count < w:       # join_schedules: the linear warmup before the boundary
@@ -185,7 +188,8 @@ class AdamW:
         decay = f(self.total_steps - w)
         c = min(f(count - w), decay)
         cosine = f(0.5) * (f(1) + f(np.cos(f(np.pi) * c / decay)))
-        return _f32(f(self.lr) * cosine)      # end value 0: alpha = 0
+        alpha = 0.0 if self.lr == 0.0 else self.end_value / self.lr
+        return _f32(f(self.lr) * (f(1 - alpha) * cosine + f(alpha)))
 
     def init(self, params) -> AdamWState:
         return AdamWState(0, tree_map(torch.zeros_like, params),

@@ -313,8 +313,27 @@ Phases, each announced by a timestamped line:
                 bit for bit over NCCL at world 1, else the update within
                 TP_UPDATE_TOL and the losses within TP_LOSS_RTOL.  With two or
                 more cards, NCCL over them too (a card a rank)
+ 35. quality    the quantization-quality tools (outputs in build/quality/):
+                (a) eval_quant_pipeline at full width, 10 s, bf16 and the four
+                formats from one bf16 tree drawn on the card, its rows beside
+                the nvidia-smi line, each variant's launches (a warm-up and a
+                timed request), every shape held to its plain version as in
+                phase check; (b) train_quality_eval on a reduced schedule at
+                half scale (QUALITY_VAE_STEPS VAE steps at batch
+                QUALITY_VAE_BATCH over QUALITY_SONGS songs, the dataset,
+                QUALITY_DIT_STEPS DiT steps, the eval and its decoder-leg
+                control), rows 7-8 inside KernelGrad in the VAE steps, their
+                backward held to the plain version's autograd at the half-scale
+                encoder's shapes as phase train_check does; (c) the half-scale
+                VAE's loss and gradients on the card against the CPU within
+                VAE_DRIFT_FACTOR x the drift of the plain path on the card (res
+                units as plain convs), never tighter than the floors, then
+                QUALITY_CMP_STEPS steps on each path, their divergence logged; (d)
+                ablate_quant_noise's parts A-C on the card (row 1 against
+                torch.matmul in f32), the format-level cosine above 0.999
 Then one {"kernels": [...]} line (each row also with its launches in phase tp,
-"launches_tp"), the nvidia-smi line, and last the result line.
+"launches_tp", and in phase quality, "launches_quality"), the nvidia-smi
+line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
 """
@@ -427,6 +446,15 @@ TRAIN_REL = 2e-2
 # of ~5e-3 of these weights, so many requantized fields change
 SERVER_TRAIN_LR = 5e-3
 CLI_TIMEOUT_S = 300
+# phase quality: (b) train_quality_eval's reduced schedule, (c) the VAE's loss
+# and gradients card vs CPU: the kernel path within VAE_DRIFT_FACTOR x the plain
+# path's drift on the card, never tighter than the floors (the loss relative;
+# each leaf's gradient, norm relative: the res kernels' bound, and ten times it
+# after the encoder's and decoder's layers)
+QUALITY_VAE_STEPS, QUALITY_VAE_BATCH, QUALITY_SONGS = 20, 16, 8
+QUALITY_DIT_STEPS, QUALITY_DIT_BATCH = 20, 8
+QUALITY_CMP_STEPS, QUALITY_CMP_BATCH = 4, 4
+VAE_DRIFT_FACTOR, VAE_LOSS_FLOOR, VAE_GRAD_FLOOR = 2.0, RES_TOL, 10 * RES_TOL
 
 T0 = time.perf_counter()
 _state = {"phase": "start"}
@@ -2689,9 +2717,10 @@ def train_card_vs_cpu(small_dit):
             "small DiT training: the card disagrees with the CPU")
 
 
-def res_backward_checks(vae_cfg):
+def res_backward_checks(vae_cfg, cases=None):
     """Phase train_check, part 2: rows 7 and 8 inside KernelGrad at the 10 s
-    decode's shapes, gradients w.r.t. x and every weight against autograd
+    decode's shapes (or at ``cases``: ("unit" | "trio", (N, L, C), dilation
+    or None)), gradients w.r.t. x and every weight against autograd
     through the plain version on the card (RES_TOL of each gradient's peak),
     and the forward that KernelGrad returns against the plain output (RES_TOL
     of the peak, and the kernels' own check_close bound).  Two planted faults
@@ -2716,11 +2745,12 @@ def res_backward_checks(vae_cfg):
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
-    up = vae_cfg.upsampling_ratios
-    l256 = TRAIN_T * up[0] * up[1] * up[2]
-    cases = [("unit", (1, l256, 256), d) for d in vru.TRIO_D]
-    cases += [("trio", (1, l256 * up[3], 128), None),
-              ("trio", (1, l256 * up[3] * up[4], 128), None)]
+    if cases is None:
+        up = vae_cfg.upsampling_ratios
+        l256 = TRAIN_T * up[0] * up[1] * up[2]
+        cases = [("unit", (1, l256, 256), d) for d in vru.TRIO_D]
+        cases += [("trio", (1, l256 * up[3], 128), None),
+                  ("trio", (1, l256 * up[3] * up[4], 128), None)]
     reset_counts()
     worst = 0.0
     for kind, (n, length, c), d in cases:
@@ -2927,6 +2957,281 @@ def train_server(engine, dit_tree, train_tree, dit_cfg, work, device="cuda"):
         srv.stop()
     log("train_server seconds: " + json.dumps({k: round(v, 4) for k, v in secs.items()}))
     return served, secs
+
+
+# ---------------------------------------------------------------------------
+# the quantization-quality tools (phase quality)
+# ---------------------------------------------------------------------------
+
+def counted(label, fn):
+    """``fn()`` with the counts reset just before and read just after:
+    (its result, (launches, shapes), seconds)."""
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    secs = time.perf_counter() - t
+    counts = snapshot_counts()
+    log(f"{label}: {secs:.1f} s; launches "
+        + json.dumps({k: v for k, v in counts[0].items() if v}))
+    return out, counts, secs
+
+
+def add_counts(total, counts):
+    for name, n in counts[0].items():
+        total[name] = total.get(name, 0) + n
+
+
+def variant_counts(total):
+    """(counts by variant, the ``on_variant`` callback of the quality tools
+    that fills it): each variant's (launches, shapes) since the last reset,
+    also added to ``total``; the counts are reset after each."""
+    per = {}
+
+    def on_variant(name):
+        per[name] = snapshot_counts()
+        add_counts(total, per[name])
+        reset_counts()
+
+    return per, on_variant
+
+
+def check_quality_rows(label, rows, need):
+    """Every quant row finite; each variant launched its format's kernel
+    (``need``: variant -> kernel names that must have launched)."""
+    for r in rows:
+        m = r.get("metrics")
+        require(m is None or all(math.isfinite(v) for v in m.values()),
+                f"{label} {r['variant']}: non-finite metrics {m}")
+    for variant, (launches, _), kernels in need:
+        require(all(launches[k] > 0 for k in kernels),
+                f"{label} {variant}: a kernel of the variant was not launched (need {kernels})")
+
+
+def quality_eval_full(names, unit, trio, work, smi_line, total, recheck):
+    """Phase quality (a): eval_quant_pipeline at full width."""
+    from acestep_tpu_torch import eval_quant_pipeline as eqp
+
+    per, on_variant = variant_counts(total)
+    log(f"(a) eval_quant_pipeline, full width, 10 s, on {smi_line}")
+    reset_counts()
+    t = time.perf_counter()
+    rows = eqp.evaluate(os.path.join(work, "quant_eval"), device="cuda", log=log,
+                        on_variant=on_variant)
+    secs = time.perf_counter() - t
+    for variant, counts in per.items():
+        log(f"  {variant}: launches in its two requests "
+            + json.dumps({k: v for k, v in counts[0].items() if v}))
+    check_quality_rows("(a)", rows, [
+        (v, per[v], [unit, trio] + ([names[v]] if v in names else []))
+        for v in ("fp_bf16", *eqp.FORMATS)])
+    require(per["fp_bf16"][0][names["q8_0"]] == 0, "(a) the bf16 engine launched q8_0")
+    q8 = next(r for r in rows if r["variant"] == "q8_0")["metrics"]
+    require(q8["latent_cos"] > 0.99, f"(a) q8_0 latent cosine {q8['latent_cos']}")
+    for i, (variant, counts) in enumerate(per.items()):
+        recheck(counts[1], 80 + i)
+    log(f"(a) took {secs:.1f} s: " + json.dumps(
+        {r["variant"]: {"infer_s": round(r["infer_s"], 4), **(
+            {k: round(v, 6) for k, v in r["metrics"].items()} if r["metrics"] else {})}
+         for r in rows}))
+
+
+def half_encoder_cases(vae_cfg, batch):
+    """The res-kernel shapes of the half-scale encoder on a crop batch:
+    blocks 0-1 (128 channels) on the trio, block 2 (256) unit by unit."""
+    from acestep_tpu_torch import train_quality_eval as tqe
+    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
+
+    cm = (1,) + tuple(vae_cfg.channel_multiples)
+    cases, length = [], tqe.CROP
+    for i, s in enumerate(vae_cfg.downsampling_ratios):
+        c = vae_cfg.encoder_hidden_size * cm[i]
+        if c in vru.TRIO_CHANNELS:
+            cases.append(("trio", (batch, length, c), None))
+        elif c in vru.UNIT_CHANNELS:
+            cases += [("unit", (batch, length, c), d) for d in vru.TRIO_D]
+        length //= s
+    return cases
+
+
+def quality_train(names, unit, trio, work, total, recheck):
+    """Phase quality (b): train_quality_eval on the reduced schedule."""
+    from acestep_tpu_torch import train_quality_eval as tqe
+
+    out = os.path.join(work, "train_quality")
+    vae_cfg = tqe.configs()[1]
+    meta, c_vae, s_vae = counted(
+        f"(b) phase vae, {QUALITY_VAE_STEPS} steps at batch {QUALITY_VAE_BATCH} over "
+        f"{QUALITY_SONGS} songs",
+        lambda: tqe.phase_vae(out, QUALITY_VAE_STEPS, QUALITY_VAE_BATCH,
+                              n_songs=QUALITY_SONGS, device="cuda", log=log))
+    require(all(math.isfinite(r["loss"]) for r in meta["losses"]),
+            f"(b) VAE losses {meta['losses']}")
+    cases = half_encoder_cases(vae_cfg, QUALITY_VAE_BATCH)
+    for kind, (n, length, c), d in cases:
+        name = unit if kind == "unit" else trio
+        shape = (n, length, c) + ((d,) if kind == "unit" else ())
+        require(c_vae[1][name].get(shape, 0) == QUALITY_VAE_STEPS,
+                f"(b) {name} {shape} launched {c_vae[1][name].get(shape, 0)} times in the "
+                f"VAE steps, {QUALITY_VAE_STEPS} expected (one a step, inside KernelGrad)")
+    log(f"(b) a VAE step launches {c_vae[0][unit] // QUALITY_VAE_STEPS} + "
+        f"{c_vae[0][trio] // QUALITY_VAE_STEPS} (unit + trio, forward inside KernelGrad; the "
+        f"held-out recon adds {c_vae[0][unit] % QUALITY_VAE_STEPS} + "
+        f"{c_vae[0][trio] % QUALITY_VAE_STEPS}); {s_vae / QUALITY_VAE_STEPS * 1e3:.1f} ms a "
+        f"step with the reads; held-out spectral L1 {meta['spectral_recon_logmag_l1']:.4f}")
+    _, c_data, _ = counted("(b) phase data", lambda: tqe.phase_data(
+        out, n_songs=QUALITY_SONGS, device="cuda", log=log))
+    train, c_train, s_train = counted(
+        f"(b) phase train, {QUALITY_DIT_STEPS} steps at batch {QUALITY_DIT_BATCH}",
+        lambda: tqe.phase_train(out, QUALITY_DIT_STEPS, QUALITY_DIT_BATCH, device="cuda",
+                                log=log))
+    require(train["steps"] == QUALITY_DIT_STEPS
+            and all(math.isfinite(x) for x in train["history"]),
+            f"(b) DiT training: {train['steps']} steps, losses {train['history']}")
+    per, on_variant = variant_counts(total)
+    reset_counts()
+    t = time.perf_counter()
+    summary = tqe.phase_eval(out, os.path.join(out, "report"), device="cuda", log=log,
+                             on_variant=on_variant)
+    s_eval = time.perf_counter() - t
+    for variant, counts in per.items():
+        log(f"  (b) eval {variant}: launches in its two requests "
+            + json.dumps({k: v for k, v in counts[0].items() if v}))
+    check_quality_rows("(b)", summary["rows"], [
+        (v, per[v], [names[v]] if v in names else []) for v in ("fp_bf16", *tqe.EVAL_FORMATS)])
+    require(summary["vae_trained"] and len(summary["decoder_control"]) == 2,
+            "(b) the eval did not run the decoder-leg control on the trained VAE")
+    for counts in (c_vae, c_data, c_train):
+        add_counts(total, counts)
+    for i, counts in enumerate([c_vae, c_data] + list(per.values())):
+        recheck(counts[1], 90 + i)
+    log(f"(b) eval {s_eval:.1f} s; train {s_train:.1f} s "
+        f"({s_train / QUALITY_DIT_STEPS * 1e3:.1f} ms a step with the data reads)")
+    add_counts(total, res_backward_checks(vae_cfg, cases))
+
+
+@contextlib.contextmanager
+def res_units_as_plain_convs():
+    """The VAE's res units as plain torch convs on every device (the channel
+    counts the kernels take emptied), for the plain path's drift."""
+    from acestep_tpu_torch.ops.cuda import vae_resunit as vru
+
+    saved = vru.UNIT_CHANNELS, vru.TRIO_CHANNELS
+    vru.UNIT_CHANNELS, vru.TRIO_CHANNELS = (), ()
+    try:
+        yield
+    finally:
+        vru.UNIT_CHANNELS, vru.TRIO_CHANNELS = saved
+
+
+def vae_card_vs_cpu(total):
+    """Phase quality (c): the half-scale VAE's loss and gradients at its
+    initial tree on one crop batch, on the card (rows 7-8 in KernelGrad)
+    against the CPU (their plain versions), within VAE_DRIFT_FACTOR x the
+    drift of the card's plain path (res units as plain convs) against the
+    CPU, never tighter than the floors; then QUALITY_CMP_STEPS steps on each
+    path from there, whose divergence is logged: the loss at init is steep
+    (the latent-scale term is a square of the encoder's mean square gain), so
+    Adam's +-lr moves of the elements whose gradients nearly cancel part
+    any two paths within a few steps, the plain one too."""
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import train_quality_eval as tqe
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.weights import tree_leaves, tree_to
+
+    vae_cfg = tqe.configs()[1]
+    p0 = RandomInit(torch.device("cpu"), tqe.VAE_SEED, None).vae(vae_cfg)
+    rng = np.random.default_rng(5)
+    songs = np.stack([tqe.synth_song(rng) for _ in range(QUALITY_SONGS)])
+    batches = [tqe.crops(rng, songs, QUALITY_CMP_BATCH) for _ in range(QUALITY_CMP_STEPS)]
+    opt = tqe.vae_optimizer(QUALITY_CMP_STEPS)
+
+    def grads(d):
+        loss, _, got = tqe.vae_grads(tree_to(p0, d), vae_cfg, torch.from_numpy(batches[0]).to(d))
+        return float(loss), [g.cpu() for g in got]
+
+    def steps(d):
+        params = tree_to(p0, d)
+        state, losses = opt.init(params), []
+        for b in batches:
+            params, state, loss, _ = tqe.vae_step(params, state, opt, vae_cfg,
+                                                  torch.from_numpy(b).to(d))
+            losses.append(float(loss))
+        return losses, [x.float().cpu() for x in tree_leaves(params)]
+
+    def rel(a, b):
+        if float(b.norm()) == 0.0:
+            return 0.0 if float(a.norm()) == 0.0 else float("inf")
+        return float((a - b).norm() / b.norm())
+
+    cpu_g, cpu_s = grads("cpu"), steps("cpu")
+    with res_units_as_plain_convs():
+        plain_g, plain_s = grads("cuda"), steps("cuda")
+    (kern_g, kern_s), counts, _ = counted("(c) the VAE's gradients and steps on the card "
+                                             "(kernels)", lambda: (grads("cuda"), steps("cuda")))
+    add_counts(total, counts)
+    start = [x.float() for x in tree_leaves(p0)]
+
+    def drift(g, s):
+        return (abs(g[0] - cpu_g[0]) / abs(cpu_g[0]), max(rel(a, b) for a, b in zip(g[1], cpu_g[1])),
+                max(abs(x - y) / abs(y) for x, y in zip(s[0], cpu_s[0])),
+                max(rel(p - q0, q - q0) for p, q, q0 in zip(s[1], cpu_s[1], start)))
+
+    d_plain, d_kern = drift(plain_g, plain_s), drift(kern_g, kern_s)
+    bound = (max(VAE_DRIFT_FACTOR * d_plain[0], VAE_LOSS_FLOOR),
+             max(VAE_DRIFT_FACTOR * d_plain[1], VAE_GRAD_FLOOR))
+    log(f"(c) half-scale VAE at batch {QUALITY_CMP_BATCH}, card vs CPU at the initial tree: "
+        f"loss {kern_g[0]:.6f} / CPU {cpu_g[0]:.6f}; relative loss difference and max "
+        f"per-leaf gradient |card - CPU| / |CPU| (norms): plain path on the card "
+        f"{d_plain[0]:.3e} / {d_plain[1]:.3e}, kernel path {d_kern[0]:.3e} / "
+        f"{d_kern[1]:.3e} (bounds {bound[0]:.3e} / {bound[1]:.3e}: {VAE_DRIFT_FACTOR}x the "
+        f"plain path's, floors {VAE_LOSS_FLOOR:g} / {VAE_GRAD_FLOOR:g})")
+    log(f"(c) then {QUALITY_CMP_STEPS} steps (not held: see the docstring): losses card "
+        f"{kern_s[0]}, plain path {plain_s[0]}, CPU {cpu_s[0]}; max relative loss "
+        f"difference / max per-leaf |update - CPU's| / |CPU's update|: plain path "
+        f"{d_plain[2]:.3e} / {d_plain[3]:.3e}, kernel path {d_kern[2]:.3e} / {d_kern[3]:.3e}")
+    unit, trio = vru_names()
+    require(counts[0][unit] > 0 and counts[0][trio] > 0,
+            "(c) the card's VAE steps launched no res kernel")
+    require(all(math.isfinite(x) for x in kern_s[0]), f"(c) VAE losses {kern_s[0]}")
+    require(d_kern[0] <= bound[0] and d_kern[1] <= bound[1],
+            "(c) the VAE's loss or gradients on the card disagree with the CPU's")
+
+
+def quality_ablation(names, work, total, recheck):
+    """Phase quality (d): ablate_quant_noise's parts A-C on the card."""
+    from acestep_tpu_torch import ablate_quant_noise as aqn
+
+    res, counts, _ = counted("(d) ablate_quant_noise", lambda: aqn.run(
+        os.path.join(work, "quant_ablation"), device="cuda"))
+    add_counts(total, counts)
+    require(counts[0][names["q8_0"]] > 0, "(d) the ablation launched no q8_0 kernel")
+    require(res["ok_a"], f"(d) format-level matmul cosine at most 0.999: {res['a']}")
+    require(all(math.isfinite(c) for _, c in res["b"] + res["c"]), "(d) non-finite cosine")
+    recheck(counts[1], 120)
+    log(f"(d) depth-monotonic decay (a finding, not a gate): {res['decays']}")
+
+
+def quality_phase(names, unit, trio, smi_line, recheck):
+    """Phase quality: (a)-(d); returns the launches by kernel name."""
+    import shutil
+
+    work = os.path.join("build", "quality")
+    shutil.rmtree(work, ignore_errors=True)
+    total = {}
+    t = time.perf_counter()
+    quality_eval_full(names, unit, trio, work, smi_line, total, recheck)
+    free_engine()
+    quality_train(names, unit, trio, work, total, recheck)
+    free_engine()
+    vae_card_vs_cpu(total)
+    quality_ablation(names, work, total, recheck)
+    free_engine()
+    log(f"phase quality: {time.perf_counter() - t:.1f} s; launches "
+        + json.dumps({k: v for k, v in total.items() if v}))
+    return total
 
 
 def vru_names():
@@ -5133,6 +5438,13 @@ def run() -> int:
         row["launches_tp"] = launched_tp.get(row["name"], 0)
     log("launches in phase tp's worlds (every rank, summed): "
         + json.dumps({k: v for k, v in launched_tp.items() if v}))
+
+    phase("quality")
+    launched_quality = quality_phase(names, unit, trio, smi_line, recheck_shapes)
+    for row in rows:
+        row["launches_quality"] = launched_quality.get(row["name"], 0)
+        if row["name"] in checked:
+            row["max_abs_err"] = errs[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,7 @@ from acestep_tpu_torch import weights
 from acestep_tpu_torch.models import vae as tvae
 from tests.test_pipeline import TINY_DIT, TINY_TEXT
 from tests.test_torch_models import F32_REL_MAX, SLICE_VAE, jax_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 GATE_COSINE, GATE_SNR_DB = 0.999, 26.0
 DIM = TINY_DIT.audio_acoustic_hidden_dim

@@ -30,6 +30,7 @@ from acestep_tpu_torch import weights
 from acestep_tpu_torch.serving import batcher as tbatcher
 from tests.test_pipeline import TINY_DIT, TINY_TEXT
 from tests.test_torch_models import SLICE_VAE, jax_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 GATE_COSINE = 0.999
 GATE_SNR_DB = 26.0

@@ -31,6 +31,7 @@ from acestep_tpu_torch import sampler as tsampler
 from acestep_tpu_torch import weights
 from tests.test_pipeline import TINY_DIT, TINY_TEXT
 from tests.test_torch_models import SLICE_VAE, jax_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 GATE_COSINE, GATE_SNR_DB = 0.999, 26.0
 DIM = TINY_DIT.audio_acoustic_hidden_dim

@@ -44,6 +44,7 @@ from acestep_tpu_torch.quant import QuantTensor
 from tests.test_dit_mega import CFG, LC, T_FRAMES, _fwd, _inputs, _params
 from tests.test_pipeline import TINY_TEXT
 from tests.test_torch_models import SLICE_VAE, _scale_kernels, _vae_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 COS_MIN = 0.99999
 ATOL, RTOL = 5e-3, 5e-2

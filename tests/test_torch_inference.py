@@ -38,6 +38,7 @@ from tests.test_inference import TINY_TEXT as LM_CFG
 from tests.test_inference import MockTok
 from tests.test_pipeline import TINY_DIT, TINY_TEXT
 from tests.test_torch_models import SLICE_VAE, _quant_policy, jax_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 GATE_COSINE, GATE_SNR_DB = 0.999, 26.0
 CODEBOOK = 100          # codes [410, 510) of the 512-piece LM vocabulary

@@ -25,6 +25,7 @@ from acestep_tpu_torch import lm_pipeline as tlp
 from acestep_tpu_torch import weights
 from acestep_tpu_torch.serving import lm as tlm
 from tests.test_device_fsm import VOCAB, _lm, _Tok
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PROMPT = [5, 9, 2, 14]
 CODEBOOK = 50          # codes [100, 150) of the 160-piece model vocabulary

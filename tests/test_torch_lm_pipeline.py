@@ -22,6 +22,7 @@ from acestep_tpu_torch import config as tcfg
 from acestep_tpu_torch import lm_pipeline as tlp
 from acestep_tpu_torch import weights
 from tests.test_lm_pipeline import TINY, MockTokenizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 CODEBOOK = 500
 

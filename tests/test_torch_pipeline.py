@@ -123,6 +123,12 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+# the port's tools under tools/ (each runs the port on the card's machine)
+PORT_TOOLS = ("profile_torch_request.py", "profile_torch_lm.py", "profile_torch_train.py",
+              "time_qmm_shapes.py", "time_decode_attn.py", "ablate_dit_mega.py",
+              "ablate_qmm_kquant.py", "decode_attn_errors.py", "quality_phase.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((REPO / "acestep_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + [REPO / "tools" / "time_vae_resunit.py", REPO / "tools" / "vae_resunit_errors.py",
@@ -131,6 +137,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 REPO / "tests" / "test_torch_dit_mega_plan.py",
                 REPO / "tests" / "torch_parallel_worker.py", REPO / "tools" / "tp_phase.py",
                 REPO / "tools" / "tp_grad_f32.py"]
+             + [REPO / "tools" / name for name in PORT_TOOLS]
              + sorted((REPO / "tests").glob("test_torch_cuda_*.py")))
     assert len(files) > 10
     names = {str(p.relative_to(REPO)) for p in files}
@@ -170,7 +177,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/parallel/tp.py", "acestep_tpu_torch/parallel/lm_tp.py",
                    "tests/torch_parallel_worker.py", "tests/test_torch_cuda_parallel.py",
                    "tools/tp_phase.py", "acestep_tpu_torch/models/dit.py",
-                   "acestep_tpu_torch/pipeline.py", "tools/tp_grad_f32.py"):
+                   "acestep_tpu_torch/pipeline.py", "tools/tp_grad_f32.py",
+                   "acestep_tpu_torch/eval_quant_pipeline.py",
+                   "acestep_tpu_torch/train_quality_eval.py",
+                   "acestep_tpu_torch/ablate_quant_noise.py",
+                   "tests/test_torch_cuda_quality.py",
+                   *(f"tools/{name}" for name in PORT_TOOLS)):
         assert module in names, module
     for path in files:
         for name in _imports(path):

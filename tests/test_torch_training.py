@@ -53,6 +53,7 @@ from acestep_tpu_torch.training import flow_matching as tfm
 from acestep_tpu_torch.training import lokr as tlokr
 from acestep_tpu_torch.training import lora as tlora
 from tests.test_torch_models import _vae_params
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TINY = DiTConfig(
     hidden_size=32, intermediate_size=64, num_hidden_layers=1,

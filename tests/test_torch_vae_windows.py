@@ -29,6 +29,7 @@ from acestep_tpu_torch import pipeline as tpipeline
 from acestep_tpu_torch import weights
 from acestep_tpu_torch.models import vae as tvae
 from tests.test_torch_models import SLICE_VAE, jax_params, port_cfg, to_np
+from tests.torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 HOP = SLICE_VAE.hop_length
 T, CHUNK = 44, 8                       # 11 windows: sizes 6, 8, 6 and a ragged last one
