@@ -34,3 +34,19 @@ DEFAULT_LM_REWRITE_INSTRUCTION = (
     "Format the user's input into a more detailed and specific musical description:"
 )
 DEFAULT_NEGATIVE_PROMPT = "NO USER INPUT"
+
+# The DiT text encoder's style prompt (the caption and metadata through this
+# template) and the token limits of the style and lyric inputs
+# (build_cli_token_files); checkpoint data too.
+DEFAULT_DIT_INSTRUCTION = "Fill the audio semantic mask based on the given conditions:"
+SFT_GEN_PROMPT = """# Instruction
+{}
+
+# Caption
+{}
+
+# Metas
+{}<|endoftext|>
+"""
+MAX_STYLE_TOKENS = 256
+MAX_LYRIC_TOKENS = 2048

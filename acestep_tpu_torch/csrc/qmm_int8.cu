@@ -30,7 +30,9 @@
 //   2. meanwhile (warps 4-7) takes the row maxima of x over its own K range
 //      and trades them through distributed shared memory (a maximum does not
 //      depend on order, so every block gets the same xs), then quantizes its
-//      K range into shared memory: xq and xs never reach device memory;
+//      K range step by step into a ring of two step buffers, the next step's
+//      while the current one is multiplied: xq and xs never reach device
+//      memory, and xq's shared memory does not grow with K;
 //   3. step by step, forms each 32-block's exact int32 partial with __dp4a (a
 //      lane owns 4 columns; the 4 x 4 byte transposes of the N-major weight
 //      by __byte_perm; at BN < 128 two or four lanes share a block's rows and
@@ -43,8 +45,11 @@
 //      order with __fadd_rn from zero; then multiplies by xs and rounds once
 //      to bf16.
 // So the sum is the plain version's, bit for bit, whatever the split or the
-// launch.  mma.sync m16n8k32 s8 was not built: at the LM's M = 1 the dp4a
-// work is 1/16 of a tensor-core tile's and the kernel is bound by its loads.
+// launch.  With S > 1 the owner's terms take nkb * M * BN / S floats, which
+// grow with K; the plan narrows the tile where they would not fit (the 4B
+// planner's down_proj, K = 9728, at M 10-16), and S = 1 fits at every K.
+// mma.sync m16n8k32 s8 was not built: at the LM's M = 1 the dp4a work is 1/16
+// of a tensor-core tile's and the kernel is bound by its loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,8 +139,8 @@ __host__ __device__ inline Layout layout(int M, int K, int BN, int S) {
   l.ring = l.steps < 2 ? l.steps : 2;
   l.w = 0;                                              // [ring][step * 32][BN] int8, rows permuted
   l.s = l.w + l.ring * l.step * QBLK * BN;              // [ring][step][BN] f32 scales
-  l.xq = l.s + l.ring * l.step * BN * 4;                // [M][per * 32] int8
-  l.terms = l.xq + ((M * per * QBLK + 15) / 16) * 16;
+  l.xq = l.s + l.ring * l.step * BN * 4;                // [ring][M][step * 32] int8
+  l.terms = l.xq + ((l.ring * M * l.step * QBLK + 15) / 16) * 16;
   // S > 1: [nkb][M][BN / S] f32, the columns this block owns; S = 1: one
   // step's terms [STEP][M][BN]
   l.amax = l.terms + (S > 1 ? nkb * M * (BN / S) : STEP * M * BN) * 4;
@@ -223,13 +228,20 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     xs[tid] = a / 127.f;                   // a true division (div.rn), as the plain version
   }
   __syncthreads();
-  for (int i = tid; i < M * kn; i += THREADS) {
-    const int m = i / kn, k = i % kn;
-    const float sc = xs[m];
-    const float inv = sc > 0.f ? 1.f / fmaxf(sc, 1e-30f) : 0.f;
-    const float q = rintf(__fmul_rn(to_f32(x[(size_t)m * K + k0 + k]), inv));
-    xq[i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
-  }
+  // step t's rows of x quantized into xq buffer t % ring, [M][step * 32]
+  const int xw = lay.step * QBLK;
+  const auto quantize = [&](int t) {
+    int8_t* xb = xq + (t % lay.ring) * M * xw;
+    const int kt = k0 + t * xw, nk = min(lay.step, mine - t * lay.step) * QBLK;
+    for (int i = tid; i < M * nk; i += THREADS) {
+      const int m = i / nk, k = i % nk;
+      const float sc = xs[m];
+      const float inv = sc > 0.f ? 1.f / fmaxf(sc, 1e-30f) : 0.f;
+      const float q = rintf(__fmul_rn(to_f32(x[(size_t)m * K + kt + k]), inv));
+      xb[m * xw + k] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+    }
+  };
+  quantize(0);
 
   // 3. step by step: each warp one 32-block's exact int32 partials and f32
   // terms, pushed to the owner block (S > 1) or added in K order into this
@@ -247,6 +259,7 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     }
     __syncthreads();
     const int kbl = t * lay.step + warp;
+    const int8_t* xb = xq + (t % lay.ring) * M * xw;
     if (warp < lay.step && kbl < mine) {
       const int8_t* wb = ws + ((t % lay.ring) * lay.step + warp) * QBLK * BN;
       int wv[ROWS];
@@ -269,7 +282,7 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
           *reinterpret_cast<const float4*>(ss + ((t % lay.ring) * lay.step + warp) * BN + 4 * c);
       const int kb = kb0 + kbl;
       for (int m = 0; m < M; ++m) {
-        const int* xr = reinterpret_cast<const int*>(xq + m * kn + kbl * QBLK + part * ROWS);
+        const int* xr = reinterpret_cast<const int*>(xb + m * xw + warp * QBLK + part * ROWS);
         int pp[4] = {0, 0, 0, 0};
 #pragma unroll
         for (int g = 0; g < GROUPS; ++g) {
@@ -292,6 +305,8 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
         }
       }
     }
+    // the next step's xq into the other buffer (read last in step t - 1)
+    if (t + 1 < lay.steps) quantize(t + 1);
     __syncthreads();
     if (ONE) {
       const int nk = min(lay.step, mine - t * lay.step);

@@ -16,7 +16,9 @@ its bits.
 One launch a call: the quantizer is folded into the kernel.  A column tile is
 one thread-block cluster that splits K (:func:`int8_plan` picks the tile width
 and the split, and the kernel checks them), and each block streams its K range
-through a cp.async ring.  Layer ``li`` of a stacked weight is read in place
+through a cp.async ring and quantizes it a step ahead.  Every M <= 16, K % 32
+== 0 and N % 128 == 0 has a plan: an unsplit tile's shared memory does not
+grow with K.  Layer ``li`` of a stacked weight is read in place
 through ``qmm.field_ptrs`` (base plus ``li`` layer strides, checked once per
 weight object), so the wrapper makes no view and allocates only the output.
 
@@ -60,37 +62,37 @@ _SLOTS = struct.Struct("<11q")
 
 def int8_smem(m: int, k: int, bn: int, splits: int) -> int:
     """Dynamic shared memory of one block (bytes), as csrc/qmm_int8.cu's
-    ``layout``: the ring of weight steps and their scales, the slice of xq,
-    the terms (of the columns the block owns, or of one step at one split),
-    and two [16] f32 rows."""
+    ``layout``: the ring of weight steps and their scales, the ring of xq
+    steps, the terms (of the columns the block owns, or of one step at one
+    split), and two [16] f32 rows."""
     nkb = k // BLOCK
     per = -(-nkb // splits)
     step = min(STEP, per)
     ring = min(2, -(-per // step))
-    xq = -(-(m * per * BLOCK) // 16) * 16
+    xq = -(-(ring * m * step * BLOCK) // 16) * 16
     terms = nkb * m * (bn // splits) if splits > 1 else STEP * m * bn
     return ring * step * (BLOCK * bn + bn * 4) + xq + terms * 4 + 2 * MAX_M * 4
 
 
 @functools.lru_cache(maxsize=None)
 def int8_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """``(bn, splits)`` of the kernel for ``x [m, k]`` against W ``[k, n]``:
-    the widest column tile (128, 64, 32) whose tiles times the largest split
-    reach SMS blocks, then the fewest splits (1, 2, 4, 8; whole runs of
-    32-blocks, none empty) that reach SMS blocks and whose shared memory fits
-    (where none does, the most splits that fit)."""
+    """``(bn, splits)`` of the kernel for ``x [m, k]`` against W ``[k, n]``,
+    among the column tiles (128, 64, 32) and splits (1, 2, 4, 8; whole runs of
+    32-blocks, none empty) whose shared memory fits: the widest tile, then
+    the fewest splits, that reach SMS blocks; where none does, the most
+    blocks (the widest tile of equals).  A split's terms grow with K, so a
+    long K at M near 16 takes a narrower tile (the 4B planner's down_proj,
+    K 9728, at M 10-16: 64 columns in 8 splits)."""
     if not 1 <= m <= MAX_M or k < BLOCK or k % BLOCK or n < N_ALIGN or n % N_ALIGN:
         raise ValueError(f"int8_plan: no plan for x [{m}, {k}] @ W [{k}, {n}] "
                          f"(M 1..{MAX_M}, K % {BLOCK} == 0, N % {N_ALIGN} == 0)")
     nkb = k // BLOCK
     splits = [s for s in (1, 2, 4, 8)
               if s <= min(nkb, MAX_SPLITS) and math.ceil(nkb / math.ceil(nkb / s)) == s]
-    bn = next((t for t in TILES_N if n // t * splits[-1] >= SMS), TILES_N[-1])
-    fits = [s for s in splits if int8_smem(m, k, bn, s) <= SMEM_MAX]
-    if not fits:
-        raise ValueError(f"int8_plan: x [{m}, {k}] @ W [{k}, {n}] needs more than "
-                         f"{SMEM_MAX} bytes of shared memory a block")
-    return bn, next((s for s in fits if n // bn * s >= SMS), fits[-1])
+    fits = [(bn, s) for bn in TILES_N for s in splits
+            if int8_smem(m, k, bn, s) <= SMEM_MAX]        # (32, 1) fits at every K
+    return next(((bn, s) for bn, s in fits if n // bn * s >= SMS),
+                max(fits, key=lambda p: (n // p[0] * p[1], p[0])))
 
 
 def quantize_rows(x: torch.Tensor):

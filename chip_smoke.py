@@ -156,15 +156,18 @@ Phases, each announced by a timestamped line:
  22. lm_serve   configs[2]'s LM request through
                 LMPipeline.generate_with_stop_condition (byte tokenizer, bpm
                 100, 120 s -> exactly 600 codes in [0, 64000), T 0.85, top-p
-                0.95): three times on the default path (megakernel), once with
-                decode_mega=0 decode_attn=pallas, once with fused, and once
-                with thinking (free CoT), cfg 2.0 and batch 4; then request B,
-                int8_act on, once on the default path (the head through row 6)
-                and once with decode_mega=0 (every layer linear too);
-                time_costs and launches of every request
+                0.95): three times on the default path (megakernel), and once
+                with thinking (free CoT), cfg 2.0 and batch 4; the same request
+                at 30 s (150 codes) once with decode_mega=0 decode_attn=pallas
+                and once with fused; then request B, int8_act on, once on the
+                default path at 120 s (the head through row 6) and once with
+                decode_mega=0 at 30 s (every layer linear too); time_costs and
+                launches of every request
  23. recheck_lm the q8_0 matmul shapes the LM requests launched, as phase 19,
-                and every (B, T) of row 11 not checked in phase 20, through
-                the LM's own 28 layers at phase 20's 28-layer bounds
+                every (B, Hq, Hkv, T) of rows 9-10 and (M, K, N) of row 6 not
+                checked yet, and every (B, T) of row 11 not checked in phase
+                20, through the LM's own 28 layers at phase 20's 28-layer
+                bounds
  24. output_lm  a small LM (1024 wide, 2 layers) greedy on the card against the
                 same LM on the CPU (plain versions), both fed the CPU's tokens:
                 logits of the first two steps within 2e-2 of the peak (4e-2
@@ -194,7 +197,36 @@ Phases, each announced by a timestamped line:
                 then the plain request with a random codec (conv_v1): it
                 becomes a cover of the LM codes' hints [1, 3000, 64], and
                 understand_audio of the 60 s source (300 codes, 64 tokens)
- 27. server     phase full's engine (its DiT tree kept unstacked) saved with
+ 27. planners   the larger planners from a checkpoint.  The 1.7B (QWEN3_1_7B)
+                drawn on the card in bf16, written in the reference's layout
+                with a config.json and the demo vocabulary's tokenizer.json (a
+                WordLevel model read by the tokenizers package), converted with
+                convert_checkpoint --lm --lm-quant q8_0 on the host and built
+                with serving.launch.build_lm (decode_attn fused): its leaves
+                equal bit for bit to the drawn tree quantized in memory;
+                configs[2]'s song through generate_music with phase full's
+                engine (+think on the device DFA, 2 candidates ranked by PMI:
+                600 codes, 120 s of int16 audio, finite and not silent); a
+                10 s codes phase with int8_act (row 6 at the 1.7B's shapes).
+                The 4B (QWEN3_4B) drawn at q8_0, saved with save_params beside
+                lm.config.json and the tokenizer, built with build_lm: a 10 s
+                codes phase with decode_attn auto (twice), pallas and fused
+                (rows 9-10 at 32 / 8 heads), and with int8_act at 16
+                candidates (row 6 at M 16 on every linear, the down_proj and
+                o_proj shapes that had no plan among them).  Row 11 declines
+                both widths (hidden != 1024, as the JAX megakernel does) and
+                launches 0 times.  For each planner the first 16 decode steps'
+                logits on each kernel path against the plain path on the card,
+                both fed the plain run's tokens: within check_mega's 28-layer
+                bound (1.5x this run's card-vs-CPU drift; twice that with
+                int8_act, as INT8_LOGIT_REL is twice MEGA_REL), the top token
+                equal where the gap is at least the bound.  Every launched
+                shape of rows 1, 6, 9 and 10 held to its plain version; build
+                and conversion seconds, peak memory, prefill ms, decode ms and
+                launches a step beside the step's bound, each request's
+                time_costs; rows 1 and 6 timed at the 4B's decode shapes, rows
+                9-10 at its heads
+ 28. server     phase full's engine (its DiT tree kept unstacked) saved with
                 loader.save_params and read back through
                 serving.launch.build_engine; the REST server (ApiServer,
                 make_generate_fn, the byte tokenizer, LoRARuntime) on
@@ -219,7 +251,7 @@ Phases, each announced by a timestamped line:
                 card vs CPU within 1.5x the drift of its plain version on the
                 card, never below 2e-3; wall s via HTTP against the direct
                 call, upload decode, FLAC encode, probe and LoRA seconds
- 28. train      a full-width bf16 DiT (RandomInit, per-layer unfused lists)
+ 29. train      a full-width bf16 DiT (RandomInit, per-layer unfused lists)
                 through training.trainer.Trainer on a numpy batch of 2 (10 s,
                 250 frames; 320 condition tokens; item 2's last 50 frames out
                 of the loss): 5 LoRA steps (rank 16, alpha 16), 5 LoKr steps
@@ -230,7 +262,7 @@ Phases, each announced by a timestamped line:
                 the LoRA state checkpointed and resumed into a fresh Trainer
                 bit for bit, then one step from each with the same draws,
                 bit-equal
- 29. train_check a small bf16 DiT (phase output's width), 3 LoRA and 2 full
+ 30. train_check a small bf16 DiT (phase output's width), 3 LoRA and 2 full
                 steps on the card and on the CPU with the same draws: losses,
                 the gradients and the trained trees within TRAIN_REL; rows 7
                 and 8 inside vae_resunit.KernelGrad at the 10 s decode's
@@ -239,7 +271,7 @@ Phases, each announced by a timestamped line:
                 through the plain version on the card; a backward without the
                 snake's sin^2 term, and the single-pass TF32 kernel as the
                 forward, each rejected at each shape
- 30. train_server phase full's engine behind the REST server with both
+ 31. train_server phase full's engine behind the REST server with both
                 managers (127.0.0.1, port 0): /v1/dataset/scan and
                 /v1/dataset/build over two numpy WAVs (20 s and 30 s, 48 kHz
                 stereo, default_rng(4), auto_label off) polled to completed;
@@ -250,13 +282,13 @@ Phases, each announced by a timestamped line:
                 adapter registered and activated through /v1/lora (the audio
                 moves) and deactivated (the base's int16 bit for bit); build,
                 train and activation seconds
- 31. cli        python -m acestep_tpu_torch.cli --pipeline-style-lyric
+ 32. cli        python -m acestep_tpu_torch.cli --pipeline-style-lyric
                 --audio-seconds 10 in a subprocess on the card: rc 0, the JSON
                 line parses, the WAV holds 480000 frames
- 32. recheck_full the kernel shapes those requests launched, as phase 23
+ 33. recheck_full the kernel shapes those requests launched, as phase 23
                 (row 11 at the +think CoT's and the candidates' cache
                 lengths), and those of the served jobs and the dataset build
- 33. timing     kernel, plain-version and library-call times at the served
+ 34. timing     kernel, plain-version and library-call times at the served
                 shapes, beside the bound (bytes over 3.35 TB/s or operations
                 over 989 TFLOP/s bf16 / 1979 TOP/s int8 / 67 TFLOP/s f32; the
                 res kernels: three TF32 products over 495 TFLOP/s, the f32
@@ -273,7 +305,7 @@ Phases, each announced by a timestamped line:
                 graphs beside torch.matmul);
                 the DiT megakernel at T 256 and 128 with its stage split, beside
                 the layer-path step
- 34. tp         serving from a (dp, tp) group of processes (acestep_tpu_torch/
+ 35. tp         serving from a (dp, tp) group of processes (acestep_tpu_torch/
                 parallel/): each world's ranks are children of this script
                 (``chip_smoke.py --tp-rank SPEC RANK``, outputs in
                 build/tp_phase/; a world past TP_CHILD_S, or any rank failing,
@@ -313,7 +345,7 @@ Phases, each announced by a timestamped line:
                 bit for bit over NCCL at world 1, else the update within
                 TP_UPDATE_TOL and the losses within TP_LOSS_RTOL.  With two or
                 more cards, NCCL over them too (a card a rank)
- 35. quality    the quantization-quality tools (outputs in build/quality/):
+ 36. quality    the quantization-quality tools (outputs in build/quality/):
                 (a) eval_quant_pipeline at full width, 10 s, bf16 and the four
                 formats from one bf16 tree drawn on the card, its rows beside
                 the nvidia-smi line, each variant's launches (a warm-up and a
@@ -331,8 +363,9 @@ Phases, each announced by a timestamped line:
                 QUALITY_CMP_STEPS steps on each path, their divergence logged; (d)
                 ablate_quant_noise's parts A-C on the card (row 1 against
                 torch.matmul in f32), the format-level cosine above 0.999
-Then one {"kernels": [...]} line (each row also with its launches in phase tp,
-"launches_tp", and in phase quality, "launches_quality"), the nvidia-smi
+Then one {"kernels": [...]} line (each row also with its launches in phase
+planners, "launches_planners", in phase tp, "launches_tp", and in phase
+quality, "launches_quality"), the nvidia-smi
 line, and last the result line.
 A watchdog ends the run with a non-zero code, naming the phase that overran.
 Without a card, or outside the repository, it exits non-zero and prints no result.
@@ -365,6 +398,10 @@ LM_CAPTION = "epic orchestral with soaring strings"
 LM_LYRICS = "[verse]\nacross the silver sea\n[chorus]\nrise again\n"
 LM_DURATION_S = 120.0
 LM_CODES = 600                 # 120 s at 5 codes/s (code bucket 768)
+# phase lm_serve's three layer-scan requests (decode_mega=0: decode_attn pallas
+# and fused, request B's layer scan) at 30 s: 150 codes (code bucket 256), a
+# third of the steps, so that the script keeps to its time with phase planners
+LM_SCAN_S = 30.0
 LM_T = 1408                    # cache length of that request (round_len(512 + 768 + 1))
 FSM_CAPTION = 24               # check_fsm's caption budget: it binds, so a dropped budget shows
 ATTN_TOL = 2e-2                # test_decode_attn_pallas.py:52
@@ -1806,6 +1843,29 @@ def check_attn_pair(label, got, ref, fused: bool) -> float:
     return err
 
 
+def check_attn_at(shape, fused: bool, seed: int = 88) -> float:
+    """Row 9 or 10 against its plain version at a (B, Hq, Hkv, T) a request
+    launched (a rank's heads under TP; a planner's heads), lengths spread over
+    [1, T - 1], at layers 0 and 27.  Returns the max abs error."""
+    from acestep_tpu_torch.ops.cuda import decode_attn
+
+    name = (decode_attn.FUSED if fused else decode_attn.ATTN).name
+    b, hq, hkv, t_max = shape
+    lengths = [max(1, (t_max - 1) * (i + 1) // b) for i in range(b)]
+    c = attn_case(b, lengths, seed, t_max=t_max, hq=hq, hkv=hkv)
+    err = 0.0
+    for li in (0, 27):
+        tag = f"{name} B={b} Hq={hq} Hkv={hkv} T={t_max} lengths={lengths} layer {li}"
+        if fused:
+            got = decode_attn.decode_attention_fused_stacked(*fused_args(c, li))
+            ref = decode_attn.decode_attention_fused_plain(*fused_args(c, li))
+        else:
+            got = decode_attn.decode_attention_int8_stacked(*attn_args(c, li))
+            ref = decode_attn.decode_attention_plain(*attn_args(c, li))
+        err = max(err, check_attn_pair(tag, got, ref, fused))
+    return err
+
+
 def mega_diff(got, ref, gap_rel: float):
     """How far two megakernel outputs part: x max err / peak of ``ref``, the
     share of x equal, K/V int8 max diff, the scales' largest error beyond 1e-6
@@ -2056,24 +2116,26 @@ def mega_bound(cfg, b, lengths):
     return bound_ms(nbytes, ops, BF16_FLOPS)
 
 
-def lm_request(pipe, label, need, kw):
+def lm_request(pipe, label, need, kw, duration=LM_DURATION_S):
     """One LM request through generate_with_stop_condition with the counts set
-    to 0 just before it and read just after; checks the codes contract."""
+    to 0 just before it and read just after; checks the codes contract
+    (``duration`` x 5 codes)."""
     import numpy as np
 
+    n_codes = int(round(duration * 5))
     reset_counts()
-    res = pipe.generate_with_stop_condition(LM_CAPTION, LM_LYRICS, LM_DURATION_S, **kw)
+    res = pipe.generate_with_stop_condition(LM_CAPTION, LM_LYRICS, duration, **kw)
     counts, shapes = snapshot_counts()
     log(f"{label}: time_costs " + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
     log(f"{label}: launches " + json.dumps({k: v for k, v in counts.items() if v}))
     require(all(counts[n] > 0 for n in need), f"{label}: a kernel of the path was not "
             f"launched (need {need}, got {counts})")
     for c in res.candidates:
-        require(len(c) == LM_CODES and c.dtype == np.int32 and int(c.min()) >= 0
+        require(len(c) == n_codes and c.dtype == np.int32 and int(c.min()) >= 0
                 and int(c.max()) < 64000,
-                f"{label}: codes {len(c)} in [{c.min()}, {c.max()}] (need {LM_CODES} "
+                f"{label}: codes {len(c)} in [{c.min()}, {c.max()}] (need {n_codes} "
                 f"in [0, 64000))")
-    log(f"{label}: {len(res.candidates)} x {LM_CODES} codes in [0, 64000); first "
+    log(f"{label}: {len(res.candidates)} x {n_codes} codes in [0, 64000); first "
         f"{res.code_indices[:6].tolist()}")
     return res, counts, shapes
 
@@ -3234,6 +3296,44 @@ def quality_phase(names, unit, trio, smi_line, recheck):
     return total
 
 
+def phase_alone(tool: str):
+    """The set-up of one phase run alone (tools/quality_phase.py,
+    tools/planners_phase.py): prints the card's nvidia-smi line, turns TF32
+    off and builds the kernels.  Returns (that line, a ``recheck(shapes,
+    seed)`` that holds every dequant-matmul, res-unit and trio shape to its
+    plain version once, as phase check does), or None without a card."""
+    import torch
+    from acestep_tpu_torch.ops.cuda import _build, qmm
+
+    if not torch.cuda.is_available():
+        print(f"{tool}: no CUDA device", file=sys.stderr)
+        return None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.perf_counter()
+    _build.lib()
+    log(f"kernels built in {time.perf_counter() - t:.1f} s")
+    names = {fmt: k.name for fmt, k in qmm.KERNELS.items()}
+    unit, trio = vru_names()
+    checked = {name: set() for name in list(names.values()) + [unit, trio]}
+
+    def recheck(shapes, seed):
+        for fmt, name in names.items():
+            for shape in set(shapes[name]) - checked[name]:
+                check_qmm(fmt, shape, seed)
+                checked[name].add(shape)
+        for name, check in ((unit, check_unit), (trio, check_trio)):
+            for shape in set(shapes[name]) - checked[name]:
+                check(shape, seed)
+                checked[name].add(shape)
+
+    return smi, recheck
+
+
 def vru_names():
     from acestep_tpu_torch.ops.cuda import vae_resunit as vru
 
@@ -3590,6 +3690,462 @@ def convert_phase(dit_cfg, vae_cfg, text_cfg, style, lyric, need, dev="cuda"):
     del engine, mem_engine
     free_engine()
     return served
+
+
+# ---------------------------------------------------------------------------
+# phase planners: the 1.7B and 4B LM planners from a checkpoint
+# ---------------------------------------------------------------------------
+
+PLANNER_CODES_S = 10.0          # the 4B's codes phases: 50 codes (code bucket 64)
+PLANNER_CODES = 50
+PLANNER_CANDIDATES = 2          # the 1.7B song's candidates, ranked by PMI
+PLANNER_LOGIT_STEPS = 16        # decode steps whose logits each kernel path is held on
+PLANNER_INT8_BATCH = 16         # the 4B's int8_act codes phase: every linear at M 16
+PLANNER_ATTN = ("auto", "pallas", "fused")
+
+
+def demo_tokenizer_json(path, size):
+    """Write ``path``: the demo vocabulary (:func:`build_demo_vocab`) as a
+    WordLevel tokenizer.json for ``lm_pipeline.TokenizerJsonAdapter`` (the
+    ``tokenizers`` package).  ByteTokenizer's code range holds
+    ``<|audio_code_j|>`` and its EOS id ``<|im_end|>``; ``</think>`` (id 1)
+    and ``<|im_end|>`` tokenize whole; a word outside the vocabulary is id 0.
+    Returns the pieces by id."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    pieces = build_demo_vocab(size)
+    base, eos = ByteTokenizer.audio_code_base_id, ByteTokenizer.eos_token_id
+    pieces[base:eos] = [f"<|audio_code_{j}|>" for j in range(eos - base)]
+    pieces[eos] = "<|im_end|>"
+    tok = Tokenizer(models.WordLevel({p: i for i, p in enumerate(pieces)}, unk_token=pieces[0]))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens(["</think>", "<|im_end|>"])
+    tok.save(path)
+    return pieces
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Row 6's plain version for CUDA tensors too, inside the block."""
+    from acestep_tpu_torch.ops.cuda import qmm_int8
+
+    real = qmm_int8.qmm_int8_act
+
+    def plain(x, qt, li=None):
+        return qmm_int8.qmm_int8_act_plain(x, qt if li is None else qt.layer(li))
+
+    qmm_int8.qmm_int8_act = plain
+    try:
+        yield
+    finally:
+        qmm_int8.qmm_int8_act = real
+
+
+def planner_logits(params, cfg, ids, decode_attn, int8_act, forced=None,
+                   steps=PLANNER_LOGIT_STEPS, dev="cuda"):
+    """Logits (f32, on the host) of a batch-1 prefill of ``ids`` (padded to
+    its prompt bucket) and ``steps`` greedy decode steps on the card; the
+    decode megakernel declines these widths, so every step is the layer scan.
+    ``forced`` (another run's logits) supplies the tokens, so two runs decode
+    the same sequence."""
+    import torch
+    from acestep_tpu_torch.lm_pipeline import LMPipeline
+    from acestep_tpu_torch.serving import kv_cache as kvc
+    from acestep_tpu_torch.serving import lm as lm_serving
+
+    padded = LMPipeline._bucket(list(ids))
+    cache = kvc.init_cache(cfg.num_hidden_layers, 1, cfg.num_key_value_heads,
+                           kvc.round_len(len(padded) + steps + 1), cfg.head_dim, "int8", dev)
+    lg, cache = lm_serving.prefill(
+        params, cfg, torch.tensor([padded], device=dev),
+        torch.tensor([len(ids)], dtype=torch.int32, device=dev), cache, int8_act=int8_act)
+    out = [lg.float().cpu()]
+    for i in range(steps):
+        tok = (out[-1] if forced is None else forced[i]).argmax(-1).to(dev)
+        lg, cache = lm_serving.decode_step(params, cfg, cache, tok, decode_attn=decode_attn,
+                                           int8_act=int8_act)
+        cache.length = cache.length + 1
+        out.append(lg.float().cpu())
+    return out
+
+
+def planner_logits_check(label, params, cfg, ids, rel_max, dev="cuda"):
+    """The first PLANNER_LOGIT_STEPS decode steps' logits on each kernel path
+    (decode_attn auto: row 1; pallas: rows 1 and 9; fused: rows 1 and 10;
+    int8_act: row 6, and row 1 in the prefill) against the plain path on the
+    card (the dequant matmul's and row 6's plain versions, the plain
+    attention), both fed the plain run's tokens: max err / peak below
+    ``rel_max`` at every step (with int8_act twice that, as INT8_LOGIT_REL is
+    twice MEGA_REL: an activation's int8 value moves a whole step where a
+    bf16 rounding before it differs, and the prefill's rows pass through row
+    1) and the top token equal wherever the plain row's top-1 / top-2 gap is
+    at least that bound of the peak.  Returns each kernel run's (launches,
+    shapes)."""
+    import torch
+
+    runs, fails = [], []
+    for int8 in (False, True):
+        bound = rel_max * (INT8_LOGIT_REL / MEGA_REL if int8 else 1.0)
+        reset_counts()
+        with plain_qmm(), plain_int8():
+            ref = planner_logits(params, cfg, ids, "auto", int8, dev=dev)
+        require(not any(snapshot_counts()[0].values()), f"{label}: the plain path launched")
+        for mode in (("auto",) if int8 else PLANNER_ATTN):
+            reset_counts()
+            got = planner_logits(params, cfg, ids, mode, int8, forced=ref, dev=dev)
+            runs.append(snapshot_counts())
+            worst, compared, bad = 0.0, 0, []
+            for step, (r, g) in enumerate(zip(ref, got)):
+                peak = float(r.abs().max())
+                rel = float((g - r).abs().max()) / peak
+                worst = max(worst, rel)
+                top2 = torch.topk(r[0], 2).values
+                sure = float(top2[0] - top2[1]) >= bound * peak
+                compared += sure
+                if (not bool(torch.isfinite(g).all()) or rel >= bound
+                        or (sure and int(g.argmax()) != int(r.argmax()))):
+                    bad.append(step)
+            what = f"{label} decode_attn={mode}" + (" int8_act" if int8 else "")
+            log(f"  {what}: {len(ref) - 1} decode steps, logits against the plain path "
+                f"max err / peak {worst:.3e} (< {bound:.3e}), the top token equal at the "
+                f"{compared} of {len(ref)} steps whose top-1/top-2 gap is at least that; "
+                f"launches " + json.dumps({k: v for k, v in runs[-1][0].items() if v})
+                + (f"; FAIL at steps {bad}" if bad else " ok"))
+            if bad:
+                fails.append(what)
+    require(not fails, f"logits of {fails} disagree with the plain path")
+    return runs
+
+
+def planner_request(pipe, label, need, batch=1):
+    """A PLANNER_CODES_S codes phase through generate_with_stop_condition
+    (thinking off, bpm 100; ``batch`` candidates in one chunk), the counts set
+    to 0 just before and read just after; every candidate exactly
+    PLANNER_CODES codes in [0, 64000).  Returns (result, (launches, shapes))."""
+    import numpy as np
+
+    reset_counts()
+    res = pipe.generate_with_stop_condition(
+        LM_CAPTION, LM_LYRICS, PLANNER_CODES_S, thinking=False, user_metadata={"bpm": 100},
+        temperature=0.85, top_p=0.95, batch_size=batch, chunk_size=batch, seed=0)
+    counts = snapshot_counts()
+    log(f"{label}: time_costs " + json.dumps({k: round(v, 6) for k, v in res.time_costs.items()}))
+    log(f"{label}: launches " + json.dumps({k: v for k, v in counts[0].items() if v}))
+    require(all(counts[0][n] > 0 for n in need), f"{label}: a kernel of the path was not "
+            f"launched (need {need}, got {counts[0]})")
+    require(len(res.candidates) == batch, f"{label}: {len(res.candidates)} candidates")
+    for c in res.candidates:
+        require(len(c) == PLANNER_CODES and c.dtype == np.int32 and int(c.min()) >= 0
+                and int(c.max()) < 64000, f"{label}: codes {len(c)} in [{c.min()}, {c.max()}]")
+    return res, counts
+
+
+def planner_step_bound(cfg):
+    """Least time of one codes-phase decode step at B 1: the layers' q8_0
+    weights and the reduced codes head (65536 columns) as stored, once."""
+    stored, _ = lm_weight_bytes(cfg)
+    head = cfg.hidden_size * 65536 * (1 + 2 / 32)
+    return (stored + head) / HBM_BYTES_PER_S * 1e3
+
+
+def planner_step_line(label, cfg, res, counts, batch):
+    """Log prefill ms, decode ms a step and launches a step by kernel of one
+    codes phase (its decode steps counted by the qkv linear's launches at M =
+    ``batch``), beside the step's bound."""
+    from acestep_tpu_torch.ops.cuda import decode_attn, qmm, qmm_int8
+
+    shapes = counts[1]
+    qkv_n = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * cfg.head_dim
+    key = (batch, cfg.hidden_size, qkv_n)
+    names = (qmm.KERNELS["q8_0"].name, qmm_int8.INT8.name, decode_attn.ATTN.name,
+             decode_attn.FUSED.name)
+    steps = sum(shapes[name].get(key, 0) for name in names) / cfg.num_hidden_layers
+    if not steps:               # a rehearsal on the CPU counts no launch
+        return
+    per = {}
+    for name in names:
+        n = sum(v for s, v in shapes[name].items() if s[0] == batch)
+        if n:
+            per[name] = round(n / steps, 3)
+    tc = res.time_costs
+    dec = tc["lm_phase2_decode_time_cost"] / steps * 1e3
+    bound = planner_step_bound(cfg)
+    log(f"{label}: prefill {tc['lm_phase2_prefill_time_cost'] * 1e3:.3f} ms; {steps:g} decode "
+        f"steps, {dec:.3f} ms a step (bound {bound:.4f} ms at B 1, weights as stored over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {dec / bound:.1f}x); launches a step "
+        + json.dumps(per))
+
+
+def planner_timing(label, counts, batch):
+    """Rows 1 and 6 at the decode shapes (M = ``batch``) of one codes phase:
+    each shape timed alone (CUDA events, warm L2) and as a CUDA graph, beside
+    its plain version, torch.matmul on the dequantized weight and its bound;
+    weighted by its launches in the request."""
+    import torch
+    from acestep_tpu_torch.ops.cuda import qmm, qmm_int8
+
+    shapes = counts[1]
+    for name, launch, plain, bound in (
+            (qmm.KERNELS["q8_0"].name, lambda c: qmm._launch(c.x, c.qt, None, torch.bfloat16),
+             lambda c: qmm.qmm_plain(c.x, c.qt), lambda c: c.bound()),
+            (qmm_int8.INT8.name, lambda c: qmm_int8._launch(c.x, c.qt),
+             lambda c: qmm_int8.qmm_int8_act_plain(c.x, c.qt), lambda c: int8_bound(
+                 c.m, c.k, c.n))):
+        tot = {"ms": 0.0, "dev": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+        for i, (shape, cnt) in enumerate(sorted(shapes[name].items())):
+            if shape[0] != batch:
+                continue
+            case = QmmCase("q8_0", *shape, 900 + i)
+            ms = cuda_ms(lambda: launch(case), iters=20)
+            dev = graph_ms(lambda: launch(case))
+            pl = cuda_ms(lambda: plain(case), iters=3)
+            lib = cuda_ms(lambda: torch.matmul(case.x, case.wd), iters=20)
+            b, by = bound(case)
+            log(f"  {name} M={shape[0]} K={shape[1]} N={shape[2]} x{cnt}: kernel {ms:.4f} ms, "
+                f"CUDA graph {dev:.4f}, plain {pl:.4f}, library {lib:.4f}, bound {b:.4f} ({by})")
+            for key, v in (("ms", ms), ("dev", dev), ("plain", pl), ("lib", lib), ("bound", b)):
+                tot[key] += cnt * v
+            del case
+        if tot["ms"]:
+            log(f"{name} per {label}: kernel {tot['ms']:.3f} ms, CUDA graph {tot['dev']:.3f}, "
+                f"plain {tot['plain']:.3f}, library {tot['lib']:.3f}, bound {tot['bound']:.3f}")
+
+
+def planner_attn_timing(cfg, lengths):
+    """Rows 9 and 10 at the planner's heads, B 1, T 1024, at ``lengths``:
+    kernel (eager and CUDA graph), plain and SDPA ms a launch, beside the
+    bound."""
+    from acestep_tpu_torch.ops.cuda import decode_attn
+
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    for n in lengths:
+        c = attn_case(1, [n], 310, t_max=1024, hq=hq, hkv=hkv)
+        lib = sdpa_lib(c, 0, n)
+        for name, fn, plain, a in (
+                (decode_attn.ATTN.name, decode_attn.decode_attention_int8_stacked,
+                 decode_attn.decode_attention_plain, attn_args(c, 0)),
+                (decode_attn.FUSED.name, decode_attn.decode_attention_fused_stacked,
+                 decode_attn.decode_attention_fused_plain, fused_args(c, 0))):
+            for _ in range(decode_attn.POOL + 1):
+                fn(*a)
+            ms = cuda_ms(lambda: fn(*a), iters=decode_attn.POOL)
+            dev = graph_ms(lambda: fn(*a))
+            pl = cuda_ms(lambda: plain(*a), iters=5)
+            nbytes = hkv * n * (128 + 4) * 2 + hq * 128 * 2 + 2 * hkv * 128 * 2 + hq * 128 * 4
+            b, by = bound_ms(nbytes, 4.0 * hq * n * 128, BF16_FLOPS)
+            log(f"  {name} B=1 Hq={hq} Hkv={hkv} T=1024 length {n}: kernel {ms * 1e3:.2f} us "
+                f"eager, {dev * 1e3:.2f} us device; plain {pl:.4f} ms; library (SDPA, "
+                f"dequantization excluded) {cuda_ms(lib, iters=20) * 1e3:.2f} us; bound "
+                f"{b * 1e3:.3f} us ({by})")
+        del c
+
+
+def planners_phase(engine, style, lyric, recheck, check_int8_at, check_attn_at, rel_max,
+                   dev="cuda"):
+    """Phase planners: the 1.7B drawn on the card in bf16, written in the
+    reference layout with the demo vocabulary's tokenizer.json, converted at
+    q8_0 (``convert_checkpoint --lm``) and built with ``build_lm``: its
+    leaves equal the drawn tree quantized in memory, configs[2]'s song
+    through ``generate_music`` with ``engine`` (+think on the device DFA, two
+    candidates ranked by PMI), one codes phase with int8_act; the 4B drawn at
+    q8_0, saved with ``save_params`` beside ``lm.config.json`` and the
+    tokenizer, built with ``build_lm``: a 10 s codes phase with decode_attn
+    auto, pallas and fused, and with int8_act at 16 candidates (every linear
+    at M 16).  Row 11 declines both widths and launches 0 times; each
+    planner's first decode steps on every kernel path are held to the plain
+    path (``rel_max``: check_mega's bound); every launched shape of rows 1,
+    6, 9 and 10 is held to its plain version (``recheck``, ``check_int8_at``,
+    ``check_attn_at``).  Returns the launches by kernel name.  With ``dev``
+    "cpu" (and small configs patched in) it rehearses the phase: the plain
+    versions run, so no launch is asked for, checked or timed."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch import convert_checkpoint, inference, lm_pipeline, loader, pipeline
+    from acestep_tpu_torch.config import QWEN3_1_7B, QWEN3_4B
+    from acestep_tpu_torch.models import qwen
+    from acestep_tpu_torch.models.random_init import RandomInit
+    from acestep_tpu_torch.models.stacking import unstack_layer_params
+    from acestep_tpu_torch.ops.cuda import decode_attn, decode_mega, qmm, qmm_int8
+    from acestep_tpu_torch.quant.convert import importer_policy, quantize_tree
+    from acestep_tpu_torch.serving import launch
+
+    q8, int8 = qmm.KERNELS["q8_0"].name, qmm_int8.INT8.name
+    attn, fused, mega = decode_attn.ATTN.name, decode_attn.FUSED.name, decode_mega.MEGA.name
+    card = dev == "cuda"
+
+    def need(*names):
+        return list(names) if card else []
+
+    def gib(stat):
+        return getattr(torch.cuda, stat)() / 2**30 if card else 0.0
+
+    work = tempfile.TemporaryDirectory(prefix="acestep_planners_")
+    t_phase = time.perf_counter()
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    runs, total = [], {}
+
+    def keep(counts):
+        runs.append(counts)
+        add_counts(total, counts)
+
+    def codes_ids(pipe):
+        return pipe.tok.encode(lm_pipeline.build_formatted_prompt_with_cot(
+            LM_CAPTION, LM_LYRICS, lm_pipeline.metadata_to_cot({"bpm": 100})))
+
+    # (a) the 1.7B through the converter
+    cfg = QWEN3_1_7B
+    t = time.perf_counter()
+    tree = RandomInit(torch.device(dev), seed=41, quant=None).qwen(cfg)
+    tree["layers"] = unstack_layer_params(tree["layers"])
+    src, out17 = os.path.join(work.name, "reference_1_7b"), os.path.join(work.name, "lm_1_7b")
+    size = qwen_reference(tree).write(src, cfg)
+    demo_tokenizer_json(os.path.join(src, "tokenizer.json"), cfg.vocab_size)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert_checkpoint.main(["--lm", src, "--lm-quant", "q8_0", "--out", out17])
+    conv_s = time.perf_counter() - t
+    require(rc == 0, f"convert_checkpoint --lm exited {rc}")
+    shutil.rmtree(src)
+    t = time.perf_counter()
+    lm17 = launch.build_lm(out17, device=dev, decode_attn="fused")
+    sync()
+    build_s = time.perf_counter() - t
+    require(lm17 is not None and isinstance(lm17.tok, lm_pipeline.TokenizerJsonAdapter),
+            "build_lm found no planner in the converted directory")
+    bad = tree_mismatches(loader.load_params(os.path.join(out17, "lm"), device=dev),
+                          quantize_tree(tree, "q8_0", importer_policy))
+    require(not bad, f"the converted 1.7B's leaves differ from quantize_tree's: {bad[:6]}")
+    del tree
+    free_engine()
+    log(f"1.7B: bf16 drawn on the card and written in the reference layout ({size / 2**30:.3f} "
+        f"GiB) in {write_s:.1f} s; convert_checkpoint --lm --lm-quant q8_0 on the host "
+        f"{conv_s:.3f} s; build_lm {build_s:.3f} s; every converted leaf equal bit for bit to "
+        f"the drawn tree quantized in memory (quant.convert.quantize_tree); tokenizer ids: EOS "
+        f"{lm17.tok.eos_token_id}, </think> {lm17.tok.think_end_id}, codes from "
+        f"{lm17.tok.audio_code_base_id}; device memory {gib('memory_allocated'):.2f} GiB")
+    require(not decode_mega.supported(lm17.params["layers"], cfg, 1, LM_T),
+            "row 11 takes the 1.7B: the JAX megakernel declines hidden 2048")
+    params = inference.GenerationParams(
+        caption=LM_CAPTION, lyrics=LM_LYRICS, duration=LM_DURATION_S, style_token_ids=style,
+        lyric_token_ids=lyric, thinking=True, lm_num_candidates=PLANNER_CANDIDATES)
+    reset_counts()
+    song = inference.generate_music(engine, lm17, params)
+    counts = snapshot_counts()
+    keep(counts)
+    label = "1.7B configs[2] song (+think, 2 candidates, decode_attn=fused)"
+    log(f"{label}: time_costs " + json.dumps({k: round(v, 6)
+                                              for k, v in song.time_costs.items()}))
+    log(f"{label}: launches " + json.dumps({k: v for k, v in counts[0].items() if v}))
+    lm_res, md = song.lm_result, song.metadata
+    require(all(counts[0][n] > 0 for n in need(q8, fused)) and counts[0][mega] == 0,
+            f"{label}: launches {counts[0]}")
+    require(lm_res.cot_route == "device_dfa", f"{label}: the CoT took {lm_res.cot_route}")
+    require(len(lm_res.candidates) == PLANNER_CANDIDATES
+            and "lm_ranking_time_cost" in song.time_costs, f"{label}: no PMI ranking")
+    c = lm_res.code_indices
+    require(len(c) == LM_CODES and int(c.min()) >= 0 and int(c.max()) < 64000,
+            f"{label}: codes {len(c)} in [{c.min()}, {c.max()}]")
+    require(all(str(md.get(k, "")).strip() for k in ("bpm", "keyscale", "timesignature",
+                                                     "language", "caption", "genres")),
+            f"{label}: metadata {md}")
+    n_song = pipeline.frames_for_duration(LM_DURATION_S) * engine.vae_cfg.hop_length
+    check_audio([song.dit_result], n_song)
+    require(song.pcm16().shape == (1, n_song, 2), f"{label}: audio {song.pcm16().shape}")
+    log(f"{label}: {len(lm_res.cot_ids)} CoT tokens, metadata "
+        + json.dumps({k: md[k] for k in sorted(md)}))
+    planner_step_line(f"{label} codes phase", cfg, lm_res, counts, PLANNER_CANDIDATES)
+    res, counts = planner_request(lm_pipeline.LMPipeline(lm17.params, cfg, lm17.tok, device=dev,
+                                                         decode_attn="fused", int8_act=True),
+                                  "1.7B codes phase, int8_act, decode_attn=fused",
+                                  need(int8, fused))
+    keep(counts)
+    planner_step_line("1.7B codes phase, int8_act, decode_attn=fused", cfg, res, counts, 1)
+    for r in planner_logits_check("1.7B", lm17.params, cfg, codes_ids(lm17), rel_max, dev):
+        keep(r)
+    peak17 = gib("max_memory_allocated")
+    del lm17, song
+    shutil.rmtree(out17)
+    free_engine()
+
+    # (b) the 4B through a saved checkpoint
+    cfg = QWEN3_4B
+    t = time.perf_counter()
+    p4 = qwen.init_params(cfg, device=dev, seed=43, quant="q8_0")
+    p4["layers"] = unstack_layer_params(p4["layers"])
+    out4 = os.path.join(work.name, "ckpt_4b")
+    os.makedirs(out4)
+    loader.save_params(os.path.join(out4, "lm"), p4)
+    with open(os.path.join(out4, "lm.config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    demo_tokenizer_json(os.path.join(out4, "tokenizer.json"), cfg.vocab_size)
+    save_s = time.perf_counter() - t
+    del p4
+    free_engine()
+    t = time.perf_counter()
+    pipe4 = launch.build_lm(out4, device=dev)
+    sync()
+    build_s = time.perf_counter() - t
+    work.cleanup()
+    log(f"4B: q8_0 drawn on the card and saved with save_params in {save_s:.1f} s; build_lm "
+        f"{build_s:.3f} s; device memory {gib('memory_allocated'):.2f} GiB")
+    require(not decode_mega.supported(pipe4.params["layers"], cfg, 1, LM_T),
+            "row 11 takes the 4B: the JAX megakernel declines hidden 2560")
+    reqs = {}
+    for mode, path in (("auto", need(q8)), ("pallas", need(q8, attn)),
+                       ("fused", need(q8, fused))):
+        p = pipe4 if mode == "auto" else lm_pipeline.LMPipeline(
+            pipe4.params, cfg, pipe4.tok, device=dev, decode_attn=mode)
+        for i in range(2 if mode == "auto" else 1):
+            label = f"4B codes phase, decode_attn={mode}" + (" (warm-up)" if i == 0 and
+                                                               mode == "auto" else "")
+            reqs[mode] = planner_request(p, label, path)
+            keep(reqs[mode][1])
+        planner_step_line(f"4B codes phase, decode_attn={mode}", cfg, *reqs[mode], 1)
+    label = f"4B codes phase, int8_act, {PLANNER_INT8_BATCH} candidates"
+    reqs["int8"] = planner_request(lm_pipeline.LMPipeline(pipe4.params, cfg, pipe4.tok,
+                                                          device=dev, int8_act=True),
+                                   label, need(int8), batch=PLANNER_INT8_BATCH)
+    keep(reqs["int8"][1])
+    planner_step_line(label, cfg, *reqs["int8"], PLANNER_INT8_BATCH)
+    by_m = {}
+    for (m, k, n), v in reqs["int8"][1][1][int8].items():
+        by_m.setdefault(m, 0)
+        by_m[m] += v
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    qdim = cfg.num_attention_heads * cfg.head_dim
+    hit = {s: reqs["int8"][1][1][int8].get(s, 0) for s in ((16, inter, h), (16, qdim, h))}
+    log(f"{label}: row 6 launches by M " + json.dumps({str(k): v for k, v in sorted(by_m.items())})
+        + "; at the shapes that had no plan: " + json.dumps({str(k): v for k, v in hit.items()}))
+    require(all(hit.values()) or not card, f"{label}: down_proj or o_proj never ran row 6 at M 16")
+    for r in planner_logits_check("4B", pipe4.params, cfg, codes_ids(pipe4), rel_max, dev):
+        keep(r)
+    peak4 = gib("max_memory_allocated")
+
+    # (c) every launched shape against its plain version, then the times
+    require(total.get(mega, 0) == 0, f"row 11 launched {total.get(mega)} times in the phase")
+    if card:
+        for _, shapes in runs:
+            recheck(shapes, 95)
+            for shape in shapes[int8]:
+                check_int8_at(shape)
+            for name, is_fused in ((attn, False), (fused, True)):
+                for shape in shapes[name]:
+                    check_attn_at(shape, is_fused)
+        for mode, batch in (("auto", 1), ("int8", PLANNER_INT8_BATCH)):
+            planner_timing(f"4B codes phase ({mode}, B {batch})", reqs[mode][1], batch)
+        planner_attn_timing(cfg, (64, 128))
+    del pipe4
+    free_engine()
+    log(f"phase planners: {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{peak17:.2f} GiB (1.7B), {peak4:.2f} GiB (4B); row 11 launches 0; launches "
+        + json.dumps({k: v for k, v in total.items() if v}))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4766,6 +5322,20 @@ def run() -> int:
                                         decode_mega.MEGA.name)
     for name in (attn_name, fused_name, mega_name):
         errs[name] = 0.0
+    attn_checked = set()
+
+    def check_attn_shape(shape, fused):
+        """Row 9 or 10 at a (B, Hq, Hkv, T) a request launched, once each."""
+        name = fused_name if fused else attn_name
+        if (name, shape) not in attn_checked:
+            errs[name] = max(errs[name], check_attn_at(shape, fused))
+            attn_checked.add((name, shape))
+
+    def check_int8_shape(shape):
+        """Row 6 at an (M, K, N) a request launched, once each."""
+        if shape not in int8_shapes:
+            errs[int8_name] = max(errs[int8_name], check_int8(shape, 99))
+            int8_shapes.append(shape)
 
     phase("check_lm")
     # (B, lengths, T): T = 1024 is one T block, so all its chunks share one
@@ -4821,8 +5391,9 @@ def run() -> int:
     for mode, name in (("pallas", attn_name), ("fused", fused_name)):
         alt = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, ByteTokenizer(), device="cuda",
                                      decode_mega="0", decode_attn=mode)
-        lm_runs[mode] = lm_request(alt, f"configs[2] LM request, decode_mega=0 "
-                                   f"decode_attn={mode}", [name, "q8_0_qmm"], base_kw)
+        lm_runs[mode] = lm_request(alt, f"{LM_SCAN_S:g} s LM request, decode_mega=0 "
+                                   f"decode_attn={mode}", [name, "q8_0_qmm"], base_kw,
+                                   LM_SCAN_S)
         require(lm_runs[mode][1][mega_name] == 0, f"decode_mega=0 still ran {mega_name}")
     hits = pipe.prefix_cache.hits
     lm_runs["thinking"] = lm_request(
@@ -4838,7 +5409,8 @@ def run() -> int:
         alt = lm_pipeline.LMPipeline(pipe.params, QWEN3_0_6B, ByteTokenizer(), device="cuda",
                                      decode_mega=mode, int8_act=True)
         lm_runs[key] = lm_request(alt, f"request B, int8_act, decode_mega={mode}",
-                                  [int8_name] + ([mega_name] if mode == "auto" else []), base_kw)
+                                  [int8_name] + ([mega_name] if mode == "auto" else []), base_kw,
+                                  LM_DURATION_S if mode == "auto" else LM_SCAN_S)
         log(f"request B, decode_mega={mode}: {lm_runs[key][1][int8_name]} row 6 launches by "
             f"(M, K, N): {json.dumps({str(k): v for k, v in lm_runs[key][2][int8_name].items()})}")
     require(lm_runs["B layer scan"][1][mega_name] == 0, f"decode_mega=0 still ran {mega_name}")
@@ -4848,9 +5420,10 @@ def run() -> int:
     for key, (_, _, shapes) in lm_runs.items():
         recheck_shapes(shapes, 99, lm_check)
         for shape in shapes[int8_name]:
-            if shape not in int8_shapes:
-                errs[int8_name] = max(errs[int8_name], check_int8(shape, 99))
-                int8_shapes.append(shape)
+            check_int8_shape(shape)
+        for name, fused in ((attn_name, False), (fused_name, True)):
+            for shape in shapes[name]:
+                check_attn_shape(shape, fused)
 
     phase("output_lm")
     small_lm = QwenConfig(hidden_size=1024, num_hidden_layers=2, num_attention_heads=16,
@@ -5082,6 +5655,10 @@ def run() -> int:
                                for n, runs in stop.items()}))
     del think
 
+    phase("planners")
+    launched_planners = planners_phase(engine, full_style, full_lyric, recheck_shapes,
+                                       check_int8_shape, check_attn_shape, mega_bounds28[0])
+
     phase("server")
     served_http = serve_http(engine, dit_tree, pipe, src_wave, refer_wave, names, mega_name,
                              audio_small_cfgs(small_dit) + (small_text,))
@@ -5239,8 +5816,14 @@ def run() -> int:
     # request's launches; the bound sums every step's own length
     l0 = len(ByteTokenizer().encode(lm_pipeline.build_formatted_prompt_with_cot(
         LM_CAPTION, LM_LYRICS, lm_pipeline.metadata_to_cot({"bpm": 100}))))
-    steps = [l0 + i for i in range(lm_pipeline.code_bucket(LM_CODES + 2) - 1)]
-    probe = (steps[0], steps[len(steps) // 2], steps[-1])
+
+    def codes_steps(n_codes):
+        """Valid lengths of a codes phase's decode steps, and three to time."""
+        st = [l0 + i for i in range(lm_pipeline.code_bucket(n_codes + 2) - 1)]
+        return st, (st[0], st[len(st) // 2], st[-1])
+
+    steps, probe = codes_steps(LM_CODES)                 # row 11: the 120 s requests
+    scan_steps, scan_probe = codes_steps(int(LM_SCAN_S * 5))     # rows 9-10: 30 s
 
     for name, mode, fused in ((attn_name, "pallas", False), (fused_name, "fused", True)):
         n_launch = lm_runs[mode][1][name]
@@ -5249,7 +5832,7 @@ def run() -> int:
               else decode_attn.decode_attention_int8_stacked)
         plain = (decode_attn.decode_attention_fused_plain if fused
                  else decode_attn.decode_attention_plain)
-        for n in probe:
+        for n in scan_probe:
             c = attn_case(1, [n], 300)
             a = fused_args(c, 0) if fused else attn_args(c, 0)
             lib = sdpa_lib(c, 0, n)
@@ -5272,9 +5855,9 @@ def run() -> int:
                 f"dequantization excluded) {per['lib'][-1] * 1e3:.2f} us eager, "
                 f"{per['lib_dev'][-1] * 1e3:.2f} us device; plain {per['plain'][-1]:.4f} ms; "
                 f"bound {b_ms * 1e3:.3f} us (device / bound {per['dev'][-1] / b_ms:.1f})")
-        per_step = n_launch / len(steps)          # one launch per layer per step
-        bound = sum(attn_bound(1, n, fused)[0] for n in steps) * per_step
-        by = attn_bound(1, steps[len(steps) // 2], fused)[1]
+        per_step = n_launch / len(scan_steps)     # one launch per layer per step
+        bound = sum(attn_bound(1, n, fused)[0] for n in scan_steps) * per_step
+        by = attn_bound(1, scan_steps[len(scan_steps) // 2], fused)[1]
         mean = {k: sum(v) / len(v) for k, v in per.items()}
         rows.append({"name": name, "route": "cuda", "source": decode_attn.SOURCE,
                      "replaces": (decode_attn.FUSED if fused else decode_attn.ATTN).replaces,
@@ -5410,31 +5993,10 @@ def run() -> int:
         "warm L2) and weighted by its launches in one request of the named path")
 
     phase("tp")
-    attn_checked = set()
-
-    def check_attn_shape(shape, fused):
-        """Row 9 or 10 against its plain version at a (B, Hq, Hkv, T) a rank
-        launched (a rank's heads under TP), at layers 0 and 27."""
-        name = fused_name if fused else attn_name
-        if (name, shape) in attn_checked:
-            return
-        b, hq, hkv, t_max = shape
-        lengths = [max(1, (t_max - 1) * (i + 1) // b) for i in range(b)]
-        c = attn_case(b, lengths, 88, t_max=t_max, hq=hq, hkv=hkv)
-        for li in (0, 27):
-            tag = f"{name} B={b} Hq={hq} Hkv={hkv} T={t_max} lengths={lengths} layer {li}"
-            if fused:
-                got = decode_attn.decode_attention_fused_stacked(*fused_args(c, li))
-                ref = decode_attn.decode_attention_fused_plain(*fused_args(c, li))
-            else:
-                got = decode_attn.decode_attention_int8_stacked(*attn_args(c, li))
-                ref = decode_attn.decode_attention_plain(*attn_args(c, li))
-            errs[name] = max(errs[name], check_attn_pair(tag, got, ref, fused))
-        attn_checked.add((name, shape))
-
     launched_tp = TpPhase(results, pipe.params, mega_drift28, recheck_shapes,
                           check_attn_shape).run()
     for row in rows:
+        row["launches_planners"] = launched_planners.get(row["name"], 0)
         row["launches_tp"] = launched_tp.get(row["name"], 0)
     log("launches in phase tp's worlds (every rank, summed): "
         + json.dumps({k: v for k, v in launched_tp.items() if v}))

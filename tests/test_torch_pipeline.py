@@ -126,7 +126,8 @@ def _imports(path: pathlib.Path):
 # the port's tools under tools/ (each runs the port on the card's machine)
 PORT_TOOLS = ("profile_torch_request.py", "profile_torch_lm.py", "profile_torch_train.py",
               "time_qmm_shapes.py", "time_decode_attn.py", "ablate_dit_mega.py",
-              "ablate_qmm_kquant.py", "decode_attn_errors.py", "quality_phase.py")
+              "ablate_qmm_kquant.py", "decode_attn_errors.py", "quality_phase.py",
+              "planners_phase.py", "verify_serving_torch.py", "verify_e2e_session_torch.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -182,6 +183,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "acestep_tpu_torch/train_quality_eval.py",
                    "acestep_tpu_torch/ablate_quant_noise.py",
                    "tests/test_torch_cuda_quality.py",
+                   "acestep_tpu_torch/check_env.py",
+                   "acestep_tpu_torch/build_cli_token_files.py",
+                   "tests/test_torch_cuda_planners.py",
                    *(f"tools/{name}" for name in PORT_TOOLS)):
         assert module in names, module
     for path in files:

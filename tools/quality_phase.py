@@ -19,9 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -29,37 +27,15 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     sys.argv = [os.path.join(ROOT, "chip_smoke.py")]
-    import torch
-
     import chip_smoke as cs
-    from acestep_tpu_torch.ops.cuda import _build, qmm
+    from acestep_tpu_torch.ops.cuda import qmm
 
-    if not torch.cuda.is_available():
-        print("quality_phase: no CUDA device", file=sys.stderr)
+    setup = cs.phase_alone("quality_phase")
+    if setup is None:
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t = time.perf_counter()
-    _build.lib()
-    cs.log(f"kernels built in {time.perf_counter() - t:.1f} s")
+    smi, recheck = setup
     names = {fmt: k.name for fmt, k in qmm.KERNELS.items()}
     unit, trio = cs.vru_names()
-    checked = {name: set() for name in list(names.values()) + [unit, trio]}
-
-    def recheck(shapes, seed):
-        for fmt, name in names.items():
-            for shape in set(shapes[name]) - checked[name]:
-                cs.check_qmm(fmt, shape, seed)
-                checked[name].add(shape)
-        for name, check in ((unit, cs.check_unit), (trio, cs.check_trio)):
-            for shape in set(shapes[name]) - checked[name]:
-                check(shape, seed)
-                checked[name].add(shape)
-
     try:
         launched = cs.quality_phase(names, unit, trio, smi, recheck)
     except cs.Failure as exc:
